@@ -5,27 +5,38 @@
 Phases, in order; any failure ends the script with a non-zero exit:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build the CUDA kernels from smcpp_tpu_torch/csrc with nvcc (sm_90a);
-3. each kernel (K1 asc_sweep, K2 dsc_sweep, K3 segment_ops) against its
-   plain PyTorch version on the card, f32 at 'highest' and 'default', on
-   synthetic inputs at a small shape (S=64, L=512, M=15, 16 and 17, 89
-   keys), with kernel and plain times;
+2. build the CUDA kernels from smcpp_tpu_torch/csrc with nvcc (sm_90a), one
+   nvcc per source, in parallel;
+3. each kernel against its plain PyTorch version on the card, on synthetic
+   inputs at small shapes, with kernel and plain times: K1 asc_sweep, K2
+   dsc_sweep and K3 segment_ops at S=64, L=512, M=15, 16 and 17, 89 keys,
+   f32 at 'highest' and 'default'; K2g dsc_sweep_gamma, K4 viterbi_ops and K5
+   viterbi_paths at S=64, L=512, M=2, 15, 16, 17 and 32, 89 keys; all six at
+   M=32 with 1000 keys (emission tables past a block's shared memory);
 4. the main path: simulate 2 contigs x 100 Mbp with n=20 (port's
    data/simulate.py, seeded), then ``smcpp_tpu_torch.commands.main estimate
    --em-iterations 2 --device cuda`` at the default knots, spline and w;
-   checks model.final.json and that every kernel was launched; then each
-   kernel against its plain version again, at both rungs, on the fitted
-   manager's own inputs (its packed windows, f32 T and E and the boundary
-   vectors they give: the shape, M and key count the fit launched the
-   kernels at), with kernel and plain times;
-5. ``estep_direct`` alone at the bench.py C3 shape (22 x 2.5e6 windows,
+   checks model.final.json and that every E-step kernel was launched; then
+   each of K1-K3 against its plain version again, at both rungs, on the
+   fitted manager's own inputs (its packed windows, f32 T and E and the
+   boundary vectors they give: the shape, M and key count the fit launched
+   the kernels at), with kernel and plain times;
+5. the posterior path: ``smcpp_tpu_torch.commands.main posterior --device
+   cuda --map --intervals 0.025,0.5,0.975`` with phase 4's model on the
+   first 100 Mbp contig (M=32, every base a window); checks the npz (gammas,
+   sites, MAP states, quantiles), that every posterior kernel was launched
+   (K3, K1, K2 in the E-step; K3, K1, K2g in the decode; K4, K5), then times
+   the decode's and the Viterbi's phases with CUDA events, and holds each
+   of the six kernels against its plain version on the posterior manager's
+   own inputs, restricted to its first 32 segments;
+6. ``estep_direct`` alone at the bench.py C3 shape (22 x 2.5e6 windows,
    M=16, 128 keys; median of 3 runs), in Gbp/s.
 
-The line before the last is the kernels' JSON record (launches from the
-main path's run; errors and times from the phase-4 comparison at the rung
-the fit ended on); the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
-CUDA device is present.
+The line before the last is the kernels' JSON record (launches from each
+kernel's own path: K1-K3 from phase 4's estimate, K2g, K4 and K5 from phase
+5's posterior; errors and times from the comparison on that path's own
+inputs); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero
+without a result when no CUDA device is present.
 """
 
 import json
@@ -71,8 +82,8 @@ def build():
     t0 = time.perf_counter()
     _cuda.lib()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_cuda.build_seconds if _cuda.build_seconds is not None else 0:.1f} s) "
-        f"-> {_cuda.library_path()}")
+        f"(nvcc {_cuda.build_seconds if _cuda.build_seconds is not None else 0:.1f} s, "
+        f"one per source in parallel) -> {_cuda.library_paths()}")
 
 
 def cuda_ms(fn, reps):
@@ -129,7 +140,7 @@ def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
     ms)}."""
     from smcpp_tpu_torch.ops import window_kernel as wk
 
-    rtol = HIGHEST_RTOL if prec == "highest" else DEFAULT_RTOL
+    rtol = DEFAULT_RTOL if prec == "default" else HIGHEST_RTOL
     # K3
     ops, logs = wk.segment_ops_cuda(T, E, keys, valid, prec)
     ops_p, logs_p = wk.segment_ops_plain(T, E, keys, valid, prec)
@@ -172,8 +183,69 @@ def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
     }
 
 
+def check_equal(name, got, want):
+    "K4 and K5 are exact (adds and maxima): the kernel must equal the plain."
+    import torch
+
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(
+            f"{name}: kernel differs from its plain version in "
+            f"{int((got != want).sum())} of {got.numel()} entries"
+        )
+    return 0.0
+
+
+def compare_decode(tag, T, E, keys, valid, A_in, Q_end, entry, exit_, reps):
+    """K2g, K4 and K5 against their plain versions on one input set, with
+    f32 carries (the decode's rung); raises on a miss.  Returns {kernel
+    name: (max abs err, kernel ms, plain ms)}."""
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    al, _ = wk.asc_sweep_plain(T, E, keys, valid, A_in, "highest")
+    al = al.contiguous()
+    *_, gam = wk.dsc_sweep_gamma_cuda(T, E, keys, valid, al, Q_end)
+    *_, gam_p = wk.dsc_sweep_plain(T, E, keys, valid, al, Q_end, True)
+    eg = check_close(f"dsc_sweep_gamma [{tag}] gamma", gam, gam_p,
+                     HIGHEST_RTOL, 1e-7)
+    del gam, gam_p
+    tg = cuda_ms(lambda: wk.dsc_sweep_gamma_cuda(T, E, keys, valid, al, Q_end), reps)
+    tgp = cuda_ms(lambda: wk.dsc_sweep_plain(T, E, keys, valid, al, Q_end, True), 1)
+    del al
+    e4 = check_equal(f"viterbi_ops [{tag}]", wk.viterbi_ops_cuda(T, E, keys, valid),
+                     wk.viterbi_ops_plain(T, E, keys, valid))
+    t4 = cuda_ms(lambda: wk.viterbi_ops_cuda(T, E, keys, valid), reps)
+    t4p = cuda_ms(lambda: wk.viterbi_ops_plain(T, E, keys, valid), 1)
+    e5 = check_equal(
+        f"viterbi_paths [{tag}]",
+        wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_),
+        wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_),
+    )
+    t5 = cuda_ms(lambda: wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_), reps)
+    t5p = cuda_ms(lambda: wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_), 1)
+    log(f"[{tag}] ms kernel/plain: dsc_sweep_gamma {tg:.3f}/{tgp:.1f} "
+        f"viterbi_ops {t4:.3f}/{t4p:.1f} viterbi_paths {t5:.3f}/{t5p:.1f}; "
+        f"max abs err {eg:.2e} {e4:.2e} {e5:.2e}")
+    return {
+        "dsc_sweep_gamma": (eg, tg, tgp),
+        "viterbi_ops": (e4, t4, t4p),
+        "viterbi_paths": (e5, t5, t5p),
+    }
+
+
+def states(seed, S, M):
+    import torch
+
+    rng = np.random.RandomState(seed)
+    return tuple(
+        torch.as_tensor(rng.randint(0, M, S).astype(np.int32), device="cuda")
+        for _ in range(2)
+    )
+
+
 def compare_small():
-    "Every kernel against its plain version on synthetic inputs, both rungs."
+    """Every kernel against its plain version on synthetic inputs: K1-K3 at
+    both rungs, K2g, K4 and K5 at f32 carries, and all six with a key table
+    past a block's shared memory."""
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     for S, L, M, nk in [(64, 512, 15, 89), (64, 512, 16, 89), (64, 512, 17, 89)]:
@@ -182,6 +254,18 @@ def compare_small():
         for prec in ("highest", "default"):
             compare(f"small S={S} L={L} M={M} keys={nk} {prec}",
                     T, E, keys, valid, A_in, Q_end, prec, 3)
+    S, L, nk = 64, 512, 89
+    for M in (2, 15, 16, 17, 32):
+        T, E, keys, valid, A_in, Q_end = problem(SEED, S, L, M, nk)
+        compare_decode(f"small S={S} L={L} M={M} keys={nk}", T, E, keys, valid,
+                       A_in, Q_end, *states(SEED, S, M), 3)
+    S, L, M, nk = 64, 512, 32, 1000
+    T, E, keys, valid, A_in, Q_end = problem(SEED, S, L, M, nk)
+    for prec in ("highest", "default"):
+        compare(f"large table S={S} L={L} M={M} keys={nk} {prec}",
+                T, E, keys, valid, A_in, Q_end, prec, 3)
+    compare_decode(f"large table S={S} L={L} M={M} keys={nk}", T, E, keys,
+                   valid, A_in, Q_end, *states(SEED, S, M), 3)
     log("kernel comparisons (small): all within tolerance")
 
 
@@ -216,7 +300,8 @@ def compare_main_path(im):
 
 def main_path(workdir):
     """Simulate the slice's data and run estimate through the CLI entry
-    point; returns (launches, kernel records from compare_main_path)."""
+    point; returns (launches, kernel records from compare_main_path, the
+    fitted model.final.json, the data files)."""
     import torch
 
     from smcpp_tpu_torch.commands import main as cli
@@ -271,7 +356,7 @@ def main_path(workdir):
         an.BaseAnalysis._init_inference_manager = orig_init_im
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {k.name: k.launches for k in wk.KERNELS}
+    launches = {k.name: k.launches for k in wk.ESTEP_KERNELS}
 
     with open(os.path.join(out, "model.final.json")) as f:
         d = json.load(f)
@@ -308,7 +393,172 @@ def main_path(workdir):
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     pi, T, E = (x.float().contiguous() for x in (pi, T, E))
     estep_breakdown("slice", pi, T, E, im._wkeys, im._wvalid, im._soc)
-    return launches, compare_main_path(im)
+    return (launches, compare_main_path(im),
+            os.path.join(out, "model.final.json"), files)
+
+
+def phase_times(label, shape, phases):
+    """Milliseconds of each phase yielded by the generator function
+    ``phases`` (CUDA events after each yield), after one warm-up run."""
+    import torch
+
+    for _ in phases():
+        pass
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    names = []
+    for name in phases():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        names.append(name)
+    torch.cuda.synchronize()
+    parts = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    log(f"{label} breakdown [{shape}]: total {sum(parts):.2f} ms; "
+        + ", ".join(f"{n} {t:.2f}" for n, t in zip(names, parts)))
+
+
+def posterior_breakdown(im, pi, T, E):
+    "Phases of the manager's window decode and window Viterbi, in ms."
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    keys, valid, soc = im._wkeys, im._wvalid, im._soc
+    ends, prec = im._row_ends(), im._decode_precision()
+    shape = (f"S x L = {tuple(keys.shape)}, M = {T.shape[0]}, "
+             f"{E.shape[0]} keys, {len(ends)} rows, rung {prec!r}")
+
+    def decode():
+        ops, logs = wk.segment_operators(T, E, keys, valid, prec)
+        yield "segment_ops (K3)"
+        _, A_in, Q_end, _ = wk.contig_boundaries(pi, ops, logs, soc,
+                                                 torch.any(valid, 1))
+        yield "contig_boundaries"
+        alphas, _ = wk.asc_sweep_cuda(T, E, keys, valid, A_in.contiguous(), prec)
+        yield "asc_sweep (K1)"
+        *_, gam = wk.dsc_sweep_gamma_cuda(T, E, keys, valid, alphas,
+                                          Q_end.contiguous())
+        del alphas
+        yield "dsc_sweep_gamma (K2g)"
+        wk.rows_from_windows(gam, ends)
+        yield "prefix sum"
+
+    def viterbi():
+        W = wk.viterbi_ops_cuda(T, E, keys, valid)
+        yield "viterbi_ops (K4)"
+        entry, exit_ = wk.viterbi_boundary_states(pi, W, soc)
+        yield "boundary states (phase B)"
+        path = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+        yield "viterbi_paths (K5)"
+        path.reshape(-1)[ends]
+        yield "row gather"
+
+    phase_times("decode", shape, decode)
+    phase_times("Viterbi", shape, viterbi)
+
+
+def compare_posterior(im, pi, T, E, n_seg=32):
+    """Every kernel against its plain version on the posterior manager's own
+    inputs: its packed windows, its f32 T and E, the boundary vectors and
+    boundary states that the whole contig gives them, all restricted to the
+    first ``n_seg`` segments (a plain loop over every segment would take
+    minutes).  Returns the records of all six kernels."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    keys, valid, soc = im._wkeys, im._wvalid, im._soc
+    prec = im._decode_precision()
+    ops, logs = wk.segment_operators(T, E, keys, valid, prec)
+    _, A_in, Q_end, _ = wk.contig_boundaries(pi, ops, logs, soc, torch.any(valid, 1))
+    entry, exit_ = wk.viterbi_boundary_states(pi, wk.viterbi_ops_cuda(T, E, keys, valid), soc)
+    del ops
+    sl = slice(0, n_seg)
+    k, v = keys[sl].contiguous(), valid[sl].contiguous()
+    a, q = A_in[sl].contiguous(), Q_end[sl].contiguous()
+    tag = (f"posterior path, first {n_seg} segments: S x L = {tuple(k.shape)}, "
+           f"M = {T.shape[0]}, {E.shape[0]} keys, rung {prec!r}")
+    rec = compare(tag, T, E, k, v, a, q, prec, 5)
+    rec.update(compare_decode(tag, T, E, k, v, a, q, entry[sl].contiguous(),
+                              exit_[sl].contiguous(), 5))
+    log("kernel comparisons (posterior path): all within tolerance")
+    return rec
+
+
+def posterior_path(workdir, model_json, data):
+    """Run posterior through the CLI entry point on one contig and check its
+    output; returns (launches, kernel records from compare_posterior)."""
+    import torch
+
+    from smcpp_tpu_torch.commands import main as cli
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    out = os.path.join(workdir, "post.npz")
+    intervals = [0.025, 0.5, 0.975]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in wk.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    im = cli.main([
+        "posterior", "--device", "cuda", "--map", "--intervals",
+        ",".join(map(str, intervals)), model_json, out, data,
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in wk.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+
+    M = len(im.hidden_states) - 1
+    S, L = im._wkeys.shape
+    log(f"posterior: {wall:.2f} s wall, peak device memory {peak / 1e9:.2f} GB; "
+        f"S x L = {(S, L)} ({S * L} windows), M = {M}, "
+        f"{im.em_idx.n_keys} keys; kernel launches {launches}")
+    want = {"segment_ops": 2, "asc_sweep": 2, "dsc_sweep": 1,
+            "dsc_sweep_gamma": 1, "viterbi_ops": 1, "viterbi_paths": 1}
+    short = {n: launches[n] for n, c in want.items() if launches[n] < c}
+    if short:
+        raise AssertionError(f"posterior kernels launched too few times: {short}")
+    check_posterior_npz(out, data, im)
+    pi, T, E = (x.float().contiguous() for x in im.tensors())
+    posterior_breakdown(im, pi, T, E)
+    return launches, compare_posterior(im, pi, T, E)
+
+
+def check_posterior_npz(out, data, im):
+    """The posterior's npz against what it must hold: per-contig gammas
+    whose columns sum to 1, unnormalized row masses equal to the row spans,
+    MAP states in [0, M), quantiles non-decreasing in q."""
+    M = len(im.hidden_states) - 1
+    z = np.load(out)
+    g, sites = z[data], z[data + "_sites"]
+    path, qs = z[data + "_map"], z[data + "_quantiles"]
+    n_rows = len(sites)
+    if g.shape != (M, n_rows) or path.shape != (n_rows,) or qs.shape != (3, n_rows):
+        raise AssertionError(f"posterior npz shapes: gamma {g.shape}, map "
+                             f"{path.shape}, quantiles {qs.shape}, {n_rows} rows")
+    if not (np.all(np.isfinite(g)) and np.all(np.isfinite(qs))):
+        raise AssertionError("posterior npz holds non-finite values")
+    colerr = float(np.abs(g.sum(0) - 1.0).max())
+    if colerr > 1e-4:
+        raise AssertionError(f"gamma columns do not sum to 1 (max err {colerr:.2e})")
+    mass = im.gammas[0].sum(1)
+    spans = sites.astype(np.float64)
+    rowerr = float(np.max(np.abs(mass - spans) / spans))
+    if rowerr > 1e-3:
+        raise AssertionError(
+            f"row masses differ from the row spans (max relative {rowerr:.3g})")
+    if path.min() < 0 or path.max() >= M:
+        raise AssertionError(f"MAP states outside [0, {M}): {path.min()}..{path.max()}")
+    if np.any(np.diff(qs, axis=0) < 0):
+        raise AssertionError("posterior quantiles decrease in q")
+    log(f"  npz: {n_rows} rows; column sums within {colerr:.2e} of 1; row "
+        f"masses within {rowerr:.3g} (relative) of the spans (largest span "
+        f"{int(spans.max())}); MAP states in [{path.min()}, {path.max()}], "
+        f"{np.bincount(path, minlength=M).astype(bool).sum()} distinct; "
+        f"median quantiles {np.round(np.median(qs, 1), 4).tolist()}")
 
 
 def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
@@ -332,22 +582,8 @@ def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
         wk.boundary_stats(pi, T, a_end, u, xo, soc, cvalid)
         yield "boundary_stats"
 
-    for _ in phases():
-        pass
-    torch.cuda.synchronize()
-    marks = [torch.cuda.Event(enable_timing=True)]
-    marks[0].record()
-    names = []
-    for name in phases():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append(ev)
-        names.append(name)
-    torch.cuda.synchronize()
-    parts = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    log(f"E-step breakdown [{label}, S x L = {tuple(keys.shape)}, "
-        f"M = {T.shape[0]}, {E.shape[0]} keys]: total {sum(parts):.2f} ms; "
-        + ", ".join(f"{n} {t:.2f}" for n, t in zip(names, parts)))
+    phase_times(f"E-step [{label}]", f"S x L = {tuple(keys.shape)}, M = "
+                f"{T.shape[0]}, {E.shape[0]} keys", phases)
 
 
 def c3_throughput():
@@ -357,6 +593,7 @@ def c3_throughput():
     from bench import synth_contig
     from smcpp_tpu_torch.ops import window_kernel as wk
 
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(0)
     C, WINDOWS, W, M, n_keys = 22, 2_500_000, 100, 16, 128
     raw = [synth_contig(rng, WINDOWS, n_keys, 3) for _ in range(C)]
@@ -395,10 +632,15 @@ def main():
     build()
     compare_small()
     with tempfile.TemporaryDirectory() as workdir:
-        launches, records = main_path(workdir)
+        launches, records, model_json, files = main_path(workdir)
+        post_launches, post_records = posterior_path(workdir, model_json, files[0])
     c3_throughput()
     from smcpp_tpu_torch.ops import window_kernel as wk
 
+    # K1-K3 from the estimate path, K2g, K4 and K5 from the posterior path
+    for name in ("dsc_sweep_gamma", "viterbi_ops", "viterbi_paths"):
+        launches[name] = post_launches[name]
+        records[name] = post_records[name]
     kernels = []
     for k in wk.KERNELS:
         err, ms, plain_ms = records[k.name]

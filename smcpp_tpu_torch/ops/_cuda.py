@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes.  The build runs at first use,
-into ``paths.BUILD_DIR``, keyed by a hash of the sources and the flags, so a
-fresh checkout builds everything it needs on its first CUDA call and nothing
-is built when this module is imported.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, loaded with ctypes.  The nvcc processes
+run in parallel.  The build runs at first use, into ``paths.BUILD_DIR``,
+each library keyed by a hash of its source, the shared headers and the
+flags, so a fresh checkout builds everything it needs on its first CUDA call
+and nothing is built when this module is imported.
 """
 
 import ctypes
@@ -15,6 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 
 from ..paths import BUILD_DIR
 
@@ -28,12 +30,23 @@ build_seconds = None  # wall time of the build in this process (None: cached)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# C entry points by source file
 _SIGNATURES = {
-    "smcpp_segment_ops": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "smcpp_asc_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "smcpp_dsc_sweep": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-    ],
+    "window_kernels.cu": {
+        "smcpp_segment_ops": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "smcpp_asc_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    },
+    "dsc_kernels.cu": {
+        "smcpp_dsc_sweep": [
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+        ],
+    },
+    "viterbi_kernels.cu": {
+        "smcpp_viterbi_ops": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+        "smcpp_viterbi_paths": [
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+        ],
+    },
 }
 
 
@@ -47,58 +60,79 @@ def _nvcc():
     return path
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
-def library_path():
-    "Path of the shared library for the current sources and flags."
+def library_path(source):
+    "Path of the shared library built from csrc/``source``."
     h = hashlib.sha256()
-    for f in _sources():
+    for f in [os.path.join(CSRC, source), *_headers()]:
         with open(f, "rb") as fh:
             h.update(os.path.basename(f).encode() + b"\0" + fh.read())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"window_kernels-{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def library_paths():
+    return [library_path(src) for src in _SIGNATURES]
 
 
 def build(verbose=False):
-    """Compile the kernels if the library for the current sources is
-    missing; returns its path.  ``verbose`` adds ``-Xptxas -v`` (registers,
-    shared memory and spills per kernel) and prints the compiler output."""
+    """Compile every library whose source changed, one nvcc per source, all
+    started together; returns the library paths.  ``verbose`` rebuilds with
+    ``-Xptxas -v`` (registers, shared memory and spills per kernel) and
+    prints the compiler output."""
     global build_seconds
-    so = library_path()
-    if os.path.exists(so) and not verbose:
-        return so
+    todo = [
+        (src, so) for src, so in zip(_SIGNATURES, library_paths())
+        if verbose or not os.path.exists(so)
+    ]
+    if not todo:
+        return library_paths()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *_sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
-    if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, so)
+    procs = []
+    for src, so in todo:
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", tmp, os.path.join(CSRC, src)]
+        procs.append((src, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    failed = []
+    for src, so, tmp, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{src}: nvcc failed ({p.returncode}):\n{out}")
+            continue
+        if verbose:
+            print(f"== {src}\n{out}")
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
-    return so
+    return library_paths()
 
 
 def lib():
-    "The loaded kernel library (built on first call)."
+    "The loaded kernel entry points, as attributes (built on first call)."
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            build()
+            fns = {}
+            for src, sigs in _SIGNATURES.items():
+                handle = ctypes.CDLL(library_path(src))
+                for name, argtypes in sigs.items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
     return _lib
 
 

@@ -1,8 +1,11 @@
-"""Window-resolution E-step, in torch, with hand-written CUDA kernels.
+"""Window-resolution E-step, posterior decode and MAP decode, in torch, with
+hand-written CUDA kernels.
 
-Port of smcpp_tpu/ops/window_kernel.py (the direct Baum-Welch E-step,
-``estep_direct``).  The observation stream is decompressed to unit windows
-and cut into S segments of L windows (``pack_windows``); then
+Port of smcpp_tpu/ops/window_kernel.py: the direct Baum-Welch E-step
+(``estep_direct``), the window gamma decode (``decode_gammas_windows``) and
+the window Viterbi (``viterbi_windows``).  The observation stream is
+decompressed to unit windows and cut into S segments of L windows
+(``pack_windows``); then
 
   pass 1   ``segment_operators``: per-segment transfer operators, one
            X <- diag(e) T^T X step per window (kernel K3);
@@ -10,16 +13,21 @@ and cut into S segments of L windows (``pack_windows``); then
            operators give each segment's boundary alpha / beta vectors;
   pass 2   ``stats_pass``: an ascending alpha sweep storing the per-window
            alpha stream (K1), then a descending beta sweep reading it and
-           accumulating xisum and the per-key posterior masses (K2);
+           accumulating xisum and the per-key posterior masses (K2), or,
+           for the decode, also storing each window's posterior (K2g);
   finally  ``boundary_stats``: the transitions that cross segment and
            contig boundaries.
 
-Each of K1, K2 and K3 is a serial loop over the windows of a segment.  On a
-CUDA tensor they run as the hand-written kernels in csrc/window_kernels.cu;
-on a CPU tensor they run as the plain PyTorch loops in this module (the same
-arithmetic, f32 or f64).  A CUDA tensor never falls back to the plain
-version: the wrapper launches its kernel or raises.  The plain versions are
-also what the kernels are held against on the card.
+The Viterbi is the same two-level scheme in max-plus: per-segment max-plus
+operators (K4), a per-contig scan over them for the boundary states, then
+each segment's interior path from its entry state (K5).
+
+Each of K1-K5 is a serial loop over the windows of a segment.  On a CUDA
+tensor they run as the hand-written kernels in csrc/*.cu; on a CPU tensor
+they run as the plain PyTorch loops in this module (the same arithmetic,
+f32 or f64).  A CUDA tensor never falls back to the plain version: the
+wrapper launches its kernel or raises.  The plain versions are also what
+the kernels are held against on the card.
 
 Numerics (identical to the reference): f32 arithmetic with exact f32
 products at every precision rung; at 'default' the K3 carry is stored in
@@ -41,6 +49,9 @@ MATMUL_PRECISION = "default"
 # segments blockIdx, blockIdx + G, ... and owns one f64 partial of xisum and
 # gsum.  A fixed count keeps the reduction order independent of the card.
 DSC_BLOCKS = 1024
+# Budget of K2's per-block f64 gsum partials, G x n_keys x M x 8 bytes: a
+# large key table lowers G (it is 1024 up to 1024 keys at M = 32).
+GSUM_PART_BYTES = 256 << 20
 
 
 def carry_dtype(precision, base_dtype):
@@ -91,10 +102,23 @@ ASC_SWEEP = _Kernel(
     "smcpp_tpu/ops/pallas_sweeps.py:215",
 )
 DSC_SWEEP = _Kernel(
-    "dsc_sweep", "smcpp_tpu_torch/csrc/window_kernels.cu",
+    "dsc_sweep", "smcpp_tpu_torch/csrc/dsc_kernels.cu",
     "smcpp_tpu/ops/pallas_sweeps.py:255",
 )
-KERNELS = (SEGMENT_OPS, ASC_SWEEP, DSC_SWEEP)
+DSC_SWEEP_GAMMA = _Kernel(
+    "dsc_sweep_gamma", "smcpp_tpu_torch/csrc/dsc_kernels.cu",
+    "smcpp_tpu/ops/window_kernel.py:536",
+)
+VITERBI_OPS = _Kernel(
+    "viterbi_ops", "smcpp_tpu_torch/csrc/viterbi_kernels.cu",
+    "smcpp_tpu/ops/window_kernel.py:787",
+)
+VITERBI_PATHS = _Kernel(
+    "viterbi_paths", "smcpp_tpu_torch/csrc/viterbi_kernels.cu",
+    "smcpp_tpu/ops/window_kernel.py:871",
+)
+ESTEP_KERNELS = (SEGMENT_OPS, ASC_SWEEP, DSC_SWEEP)
+KERNELS = ESTEP_KERNELS + (DSC_SWEEP_GAMMA, VITERBI_OPS, VITERBI_PATHS)
 
 
 def check_key_range(keys, n_keys):
@@ -205,17 +229,8 @@ def asc_sweep_cuda(T, E, keys, valid, A_in, precision):
     return alphas, alpha_end
 
 
-def dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end):
-    """K2 (replaces pallas_sweeps.py:_dsc_kernel).
-
-    What bounds it: serial depth (L windows per segment) and the f64
-    accumulation of M^2 xisum terms per window.  Design: one warp per block
-    walking segments in a fixed stride; lane j owns q[j], u[j], row j of T
-    and row j of the f64 xisum accumulator in registers, gets u by warp
-    shuffle, and adds its column of the per-key masses into the warp's f64
-    shared-memory slice (no two lanes share an address, so no atomics).
-    Per-block partials are summed here with one torch.sum in f64.  Returns
-    (u_start (S, M) f32, xo (M, M) f64, gsum (n_keys, M) f64)."""
+def _dsc_launch(kernel, T, E, keys, valid, alphas, Q_end, gam):
+    "Launch K2 (gam None) or K2g (gam the (S, L, M) f32 output)."
     _check_inputs(T, E, keys, valid, Q_end)
     S, L = keys.shape
     M = T.shape[0]
@@ -224,28 +239,122 @@ def dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end):
         raise ValueError("alphas must be the (S, L, M) stream of asc_sweep_cuda")
     if alphas.device != T.device or not alphas.is_contiguous():
         raise ValueError("alphas must be a contiguous tensor on T's device")
-    smem = 12 * n_keys * M
-    if smem > 227 * 1024:
-        raise ValueError(
-            f"dsc_sweep: n_keys * M = {n_keys * M} needs {smem} B of shared "
-            "memory per block, over the 227 KB a block can have"
-        )
-    G = min(S, DSC_BLOCKS)
+    G = max(1, min(S, DSC_BLOCKS, GSUM_PART_BYTES // (8 * n_keys * M)))
     u_start = torch.empty((S, M), dtype=torch.float32, device=T.device)
     xo_part = torch.empty((G, M, M), dtype=torch.float64, device=T.device)
     gsum_part = torch.empty((G, n_keys, M), dtype=torch.float64, device=T.device)
     lib = _cuda.lib()
-    DSC_SWEEP.launches += 1
+    kernel.launches += 1
     _cuda.check(
         lib.smcpp_dsc_sweep(
             T.data_ptr(), E.data_ptr(), keys.data_ptr(), valid.data_ptr(),
             alphas.data_ptr(), Q_end.data_ptr(), S, L, M, n_keys,
             int(alphas.dtype == torch.bfloat16), G, u_start.data_ptr(),
-            xo_part.data_ptr(), gsum_part.data_ptr(), _stream(T.device),
+            xo_part.data_ptr(), gsum_part.data_ptr(),
+            None if gam is None else gam.data_ptr(), _stream(T.device),
         ),
-        DSC_SWEEP.name,
+        kernel.name,
     )
     return u_start, xo_part.sum(0), gsum_part.sum(0)
+
+
+def dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end):
+    """K2 (replaces pallas_sweeps.py:_dsc_kernel).
+
+    What bounds it: serial depth (L windows per segment) and the f64
+    accumulation of M^2 xisum terms per window.  Design: one warp per block
+    walking segments in a fixed stride; lane j owns q[j], u[j], row j of T
+    and row j of the f64 xisum accumulator in registers, gets u by warp
+    shuffle, and adds its column of the per-key masses into the block's f64
+    gsum table (shared memory when it fits, else the block's own slice of
+    the partials in global memory; no two lanes share an address, so no
+    atomics).  Per-block partials are summed here with one torch.sum in f64.
+    Returns (u_start (S, M) f32, xo (M, M) f64, gsum (n_keys, M) f64)."""
+    return _dsc_launch(DSC_SWEEP, T, E, keys, valid, alphas, Q_end, None)
+
+
+def dsc_sweep_gamma_cuda(T, E, keys, valid, alphas, Q_end):
+    """K2g (replaces the emit_gamma output of window_kernel.py:stats_pass,
+    :515 and :536-538; the Pallas _dsc_kernel has no such mode).
+
+    K2's kernel body with its gamma flag set: each window also stores
+    gamma = alpha * q / Z * valid as one contiguous f32 M-vector (the
+    stream is written once, 4 B x M per window; invalid windows store 0).
+    Returns K2's outputs plus gamma (S, L, M) f32."""
+    S, L = keys.shape
+    gam = torch.empty((S, L, T.shape[0]), dtype=torch.float32, device=T.device)
+    u_start, xo, gsum = _dsc_launch(
+        DSC_SWEEP_GAMMA, T, E, keys, valid, alphas, Q_end, gam
+    )
+    return u_start, xo, gsum, gam
+
+
+def _check_states(states, S, M, dev):
+    "Boundary states index rows of the backpointers: int32 (S,) in [0, M)."
+    if states.dtype != torch.int32 or tuple(states.shape) != (S,):
+        raise ValueError(f"boundary states must be int32 ({S},)")
+    if states.device != dev or not states.is_contiguous():
+        raise ValueError("boundary states must be contiguous on T's device")
+    if int(states.min()) < 0 or int(states.max()) >= M:
+        raise ValueError(f"boundary states must lie in [0, {M})")
+
+
+def viterbi_ops_cuda(T, E, keys, valid):
+    """K4 (replaces the lax.scan of window_kernel.py:viterbi_segment_ops).
+
+    What bounds it: serial depth along L and M^2 max-adds per lane per
+    window.  Design: K3's in max-plus; one warp per segment, lane k owns
+    column k of the (M, M) operator in registers, log T^T sits in shared
+    memory and is read as float4 broadcasts.  Exact: adds and maxima only.
+    Returns Wops (S, M, M) f32, laid out (S, i, k)."""
+    _check_inputs(T, E, keys, valid)
+    S, L = keys.shape
+    M = T.shape[0]
+    logT = torch.log(T).contiguous()
+    logE = torch.log(E).contiguous()
+    ops = torch.empty((S, M, M), dtype=torch.float32, device=T.device)
+    lib = _cuda.lib()
+    VITERBI_OPS.launches += 1
+    _cuda.check(
+        lib.smcpp_viterbi_ops(
+            logT.data_ptr(), logE.data_ptr(), keys.data_ptr(), valid.data_ptr(),
+            S, L, M, E.shape[0], ops.data_ptr(), _stream(T.device),
+        ),
+        VITERBI_OPS.name,
+    )
+    return ops
+
+
+def viterbi_paths_cuda(T, E, keys, valid, seg_entry, seg_exit):
+    """K5 (replaces window_kernel.py:viterbi_segment_paths, block=None).
+
+    What bounds it: serial depth, forward along L and back along L (the
+    backtrace is a chain of dependent loads), and the (S, L, M) int8
+    backpointer stream.  Design: one warp per segment, lane i owns V[i] and
+    column i of log T in registers; the lowest maximizing j is the
+    backpointer (jnp.argmax's tie rule), one 32-byte row per window; lane 0
+    then walks the rows back from the segment's exit state.  Returns path
+    (S, L) int32, the state after each window (segment-major)."""
+    _check_inputs(T, E, keys, valid)
+    S, L = keys.shape
+    M = T.shape[0]
+    _check_states(seg_entry, S, M, T.device)
+    _check_states(seg_exit, S, M, T.device)
+    logT = torch.log(T).contiguous()
+    logE = torch.log(E).contiguous()
+    bp = torch.empty((S, L, M), dtype=torch.int8, device=T.device)
+    path = torch.empty((S, L), dtype=torch.int32, device=T.device)
+    lib = _cuda.lib()
+    VITERBI_PATHS.launches += 1
+    _cuda.check(
+        lib.smcpp_viterbi_paths(
+            logT.data_ptr(), logE.data_ptr(), keys.data_ptr(), valid.data_ptr(),
+            seg_entry.data_ptr(), seg_exit.data_ptr(), S, L, M, E.shape[0],
+            bp.data_ptr(), path.data_ptr(), _stream(T.device),
+        ),
+        VITERBI_PATHS.name,
+    )
+    return path
 
 
 # ---------------------------------------------------------------------------
@@ -298,11 +407,13 @@ def asc_sweep_plain(T, E, keys, valid, A_in, precision):
     return alphas, a
 
 
-def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end):
+def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, emit_gamma=False):
     """The descending beta sweep of stats_pass, accumulating like the XLA
     reference: each window's per-key masses and outer products are summed
     over segments in the compute dtype, then added to f64 accumulators.
-    Returns (u_start (S, M), xo (M, M) f64, gsum (n_keys, M) f64)."""
+    Returns (u_start (S, M), xo (M, M) f64, gsum (n_keys, M) f64), and with
+    ``emit_gamma`` also each window's posterior (S, L, M) in the compute
+    dtype (zero at invalid windows)."""
     S, L = keys.shape
     M = T.shape[0]
     n_keys = E.shape[0]
@@ -313,6 +424,7 @@ def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end):
     u = torch.zeros((S, M), dtype=dt, device=T.device)
     xo = torch.zeros((M, M), dtype=torch.float64, device=T.device)
     gsum = torch.zeros((n_keys, M), dtype=torch.float64, device=T.device)
+    gam = torch.empty((S, L, M), dtype=dt, device=T.device) if emit_gamma else None
     for l in range(L - 1, -1, -1):
         a = alphas[:, l].to(dt)
         k = keys[:, l]
@@ -321,6 +433,8 @@ def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end):
         qun = torch.where(vn, tv, q)
         Z = torch.clamp(torch.sum(a * qun, 1, keepdim=True), min=tiny)
         gamma = (a * qun / Z) * v
+        if emit_gamma:
+            gam[:, l] = gamma
         ascale = (a / Z) * (v & vn)
         g_k = torch.zeros((n_keys, M), dtype=dt, device=T.device)
         g_k.index_add_(0, k.long(), gamma)
@@ -329,7 +443,96 @@ def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end):
         qn = qun / torch.clamp(torch.amax(qun, 1, keepdim=True), min=tiny)
         q = torch.where(v, qn, q)
         u = torch.where(v, E[k] * q, u)
+    if emit_gamma:
+        return u, xo, gsum, gam
     return u, xo, gsum
+
+
+def _mp_neg(dt, dev):
+    "The max-plus 'impossible' score (window_kernel.py:_mp_neg)."
+    return torch.tensor(-1e30, dtype=dt, device=dev)
+
+
+def viterbi_ops_plain(T, E, keys, valid):
+    """Phase A's loop over windows: the arithmetic of viterbi_segment_ops's
+    step, with W laid out (S, i, k).  Returns Wops (S, M, M)."""
+    S, L = keys.shape
+    M = T.shape[0]
+    dt, dev = E.dtype, T.device
+    logT = torch.log(T)  # [j, i]
+    logE = torch.log(E)
+    eye = torch.eye(M, dtype=torch.bool, device=dev)
+    W = torch.where(eye, 0.0, _mp_neg(dt, dev)).expand(S, M, M)
+    for l in range(L):
+        le = logE[keys[:, l]]  # (S, M_i)
+        sc = logT[None, :, :, None] + W[:, :, None, :]  # (S, j, i, k)
+        W2 = torch.amax(sc, 1) + le[:, :, None]
+        W2 = W2 - torch.amax(W2, (1, 2), keepdim=True)
+        W = torch.where(valid[:, l, None, None], W2, W)
+    return W.contiguous()
+
+
+def _viterbi_forward(logT, logE, keys, valid, V, l0, l1, bp=None):
+    """Phase C's forward steps over windows [l0, l1): V (S, M) -> V, storing
+    each window's backpointers (lowest maximizing j; the identity at invalid
+    windows) into bp[:, l - l0] when bp is given."""
+    S, M = V.shape
+    ident = torch.arange(M, device=V.device).expand(S, M)
+    for l in range(l0, l1):
+        sc = logT[None] + V[:, :, None]  # (S, j, i)
+        best, arg = torch.max(sc, 1)  # ties: the first maximal index
+        V2 = best + logE[keys[:, l]]
+        V2 = V2 - torch.amax(V2, 1, keepdim=True)
+        v = valid[:, l, None]
+        V = torch.where(v, V2, V)
+        if bp is not None:
+            bp[:, l - l0] = torch.where(v, arg, ident).to(torch.int8)
+    return V
+
+
+def _viterbi_backtrace(bp, state, path, l0):
+    """Walk backpointers bp (S, n, M) back from ``state`` (S,), writing the
+    state after each window into path[:, l0:l0 + n]; returns the state
+    entering window l0."""
+    for t in range(bp.shape[1] - 1, -1, -1):
+        path[:, l0 + t] = state
+        state = torch.gather(bp[:, t], 1, state[:, None].long())[:, 0].to(state.dtype)
+    return state
+
+
+def viterbi_paths_plain(T, E, keys, valid, seg_entry, seg_exit, block=None):
+    """Phase C: the forward sweep storing int8 backpointers, then the
+    reverse backtrace.  With ``block`` (a divisor of L), only the V entering
+    each block is stored, and the backtrace recomputes one block's
+    backpointers at a time from it (window_kernel.py:923-948).  Returns path
+    (S, L) int32."""
+    S, L = keys.shape
+    M = T.shape[0]
+    dt, dev = E.dtype, T.device
+    logT, logE = torch.log(T), torch.log(E)
+    V = torch.where(
+        torch.arange(M, device=dev)[None, :] == seg_entry[:, None].long(),
+        0.0, _mp_neg(dt, dev),
+    )
+    path = torch.empty((S, L), dtype=torch.int32, device=dev)
+    state = seg_exit.to(torch.int32)
+    if block is None:
+        bp = torch.empty((S, L, M), dtype=torch.int8, device=dev)
+        _viterbi_forward(logT, logE, keys, valid, V, 0, L, bp)
+        _viterbi_backtrace(bp, state, path, 0)
+        return path
+    if L % block:
+        raise ValueError(f"block {block} must divide L = {L}")
+    snaps = []
+    for l0 in range(0, L, block):
+        snaps.append(V)
+        V = _viterbi_forward(logT, logE, keys, valid, V, l0, l0 + block)
+    bp = torch.empty((S, block, M), dtype=torch.int8, device=dev)
+    for b in range(L // block - 1, -1, -1):
+        l0 = b * block
+        _viterbi_forward(logT, logE, keys, valid, snaps[b], l0, l0 + block, bp)
+        state = _viterbi_backtrace(bp, state, path, l0)
+    return path
 
 
 # ---------------------------------------------------------------------------
@@ -401,8 +604,14 @@ def stats_pass(T, E, keys, valid, A_in, Q_end, e_all=None, precision=None,
     (S, M), xo (M, M) f64, gsum (n_keys, M) f64), where xo is the raw
     outer-product accumulator (multiply by T for the xisum contribution).
 
-    On CUDA tensors: K1 then K2.  Only the default mode is ported: the
-    emission stream ``e_all``, ``alpha_remat`` and ``emit_gamma`` raise."""
+    ``emit_gamma`` also returns the per-window posterior stream, laid out
+    (S, L, M) (segment-major, i.e. genomic order; the reference's is
+    (L, M, S)) in the compute dtype: each valid window's gamma sums to 1,
+    invalid windows hold 0.
+
+    On CUDA tensors: K1 then K2, or K1 then K2g with ``emit_gamma``.  The
+    emission stream ``e_all`` and ``alpha_remat`` are not ported and
+    raise."""
     if e_all is not None:
         raise NotImplementedError(
             "stats_pass: the e_all emission stream is not ported (ROADMAP B3); "
@@ -412,18 +621,14 @@ def stats_pass(T, E, keys, valid, A_in, Q_end, e_all=None, precision=None,
         raise NotImplementedError(
             "stats_pass: alpha_remat is not ported yet (ROADMAP B3)"
         )
-    if emit_gamma:
-        raise NotImplementedError(
-            "stats_pass: the emit_gamma stream is not ported yet (ROADMAP B5)"
-        )
     precision = _precision(precision)
     if T.is_cuda:
         alphas, alpha_end = asc_sweep_cuda(T, E, keys, valid, A_in, precision)
-        u_start, xo, gsum = dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end)
-        return alpha_end, u_start, xo, gsum
+        dsc = dsc_sweep_gamma_cuda if emit_gamma else dsc_sweep_cuda
+        return (alpha_end, *dsc(T, E, keys, valid, alphas, Q_end))
     alphas, alpha_end = asc_sweep_plain(T, E, keys, valid, A_in, precision)
-    u_start, xo, gsum = dsc_sweep_plain(T, E, keys, valid, alphas, Q_end)
-    return alpha_end, u_start, xo, gsum
+    return (alpha_end,
+            *dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, emit_gamma))
 
 
 def boundary_stats(pi, T, alpha_end, u_start, xo, seg_of_contig, cvalid):
@@ -474,8 +679,190 @@ def estep_direct(pi, T, E, keys, valid, seg_of_contig, precision=None):
 
 
 # ---------------------------------------------------------------------------
+# Posterior decode and MAP decode through the window kernels
+# ---------------------------------------------------------------------------
+
+# Rows of one block of the two-level prefix sum (decode_gammas_windows).
+PREFIX_BLOCK = 1024
+
+
+def rows_from_windows(gam, row_ends):
+    """Per-row sums of a flat (W, M) per-window stream, as a prefix-sum
+    difference at the rows' last windows (window_kernel.py:737-749): f32
+    prefix sums within blocks of PREFIX_BLOCK windows, computed in place
+    (``gam`` is overwritten), f64 across the block totals, gathered at
+    ``row_ends`` and differenced, then clamped at 0.  Returns (n_rows, M)
+    f32."""
+    M = gam.shape[-1]
+    flat = gam.reshape(-1, M)
+    B = PREFIX_BLOCK
+    while flat.shape[0] % B:
+        B //= 2
+    nb = flat.shape[0] // B
+    within = flat.view(nb, B, M).cumsum_(1)  # f32, in place
+    btot = within[:, -1, :].to(torch.float64)
+    bbase = torch.cumsum(btot, 0) - btot  # exclusive block prefixes
+    picked = bbase[row_ends // B] + flat[row_ends].to(torch.float64)
+    g = torch.diff(picked, dim=0, prepend=torch.zeros_like(picked[:1]))
+    return torch.clamp(g, min=0.0).to(torch.float32)
+
+
+def decode_gammas_windows(pi, T, E, keys, valid, seg_of_contig, row_ends,
+                          precision=None):
+    """Row-resolution posterior masses through the window kernels
+    (window_kernel.py:decode_gammas_windows): K3, contig_boundaries, K1,
+    K2g, then the two-level prefix sum (rows_from_windows).  Segment-major
+    windows are genomic order (pack_windows numbers segments sequentially
+    per contig, padding only at contig tails where gamma is 0), so each
+    row's mass is a difference of one prefix sum at its last window.
+
+    row_ends: (n_rows,) int64 flat (segment-major) index of each row's last
+    window, strictly increasing (pack_window_row_ends).  Returns (ll,
+    gammas (n_rows, M) f32): each row's gammas sum to its span in windows.
+
+    Default precision is 'tensorfloat32' (f32 carries), not the E-step's
+    'default' (bf16 carries): bf16 operator carries put visible noise on the
+    segment-boundary posteriors."""
+    if precision is None:
+        precision = "tensorfloat32"
+    ops, logs = segment_operators(T, E, keys, valid, precision)
+    seg_has = torch.any(valid, 1)
+    ll, A_in, Q_end, _ = contig_boundaries(pi, ops, logs, seg_of_contig, seg_has)
+    *_, gam = stats_pass(
+        T, E, keys, valid, A_in.contiguous(), Q_end.contiguous(),
+        precision=precision, emit_gamma=True,
+    )
+    return ll, rows_from_windows(gam, row_ends)
+
+
+def viterbi_segment_ops(T, E, keys, valid):
+    """Phase A: per-segment max-plus transfer operators (S, i, k), the best
+    log score from entry state k to state i, normalized per segment
+    (window_kernel.py:viterbi_segment_ops).  K4 on CUDA tensors."""
+    if T.is_cuda:
+        return viterbi_ops_cuda(T, E, keys, valid)
+    return viterbi_ops_plain(T, E, keys, valid)
+
+
+def viterbi_boundary_states(pi, Wops, seg_of_contig):
+    """Phase B: the MAP state at every segment boundary, by a per-contig
+    max-plus scan over the segment operators and its backtrace
+    (window_kernel.py:viterbi_boundary_states).  Plain torch on every
+    device: a loop over the segments of each contig, batched over contigs;
+    the backtrace runs on the host copy of the (NS, C, M) backpointers.
+    Returns (seg_entry (S,), seg_exit (S,)) int32 on Wops's device."""
+    socn = np.asarray(seg_of_contig)
+    C, NS = socn.shape
+    S, M, _ = Wops.shape
+    dt, dev = Wops.dtype, Wops.device
+    eyemp = torch.where(torch.eye(M, dtype=torch.bool, device=dev), 0.0,
+                        _mp_neg(dt, dev))
+    pad = torch.as_tensor(socn < 0, device=dev)
+    idx = torch.as_tensor(np.maximum(socn, 0), device=dev)
+    ops_c = torch.where(pad[:, :, None, None], eyemp, Wops[idx])  # (C, NS, i, k)
+    # a pi == 0 state carries the max-plus 'impossible' score, not log(tiny)
+    logpi = torch.where(
+        pi > 0, torch.log(torch.clamp(pi, min=1e-300)), _mp_neg(pi.dtype, dev)
+    ).to(dt)
+    V = logpi.expand(C, M)
+    bps = []
+    for t in range(NS):
+        sc = ops_c[:, t] + V[:, None, :]  # (C, i, k)
+        V2, bp = torch.max(sc, 2)  # ties: the first maximal entry state
+        V = V2 - torch.amax(V2, 1, keepdim=True)
+        bps.append(bp)
+    bps = torch.stack(bps).cpu().numpy()  # (NS, C, M)
+    state = torch.argmax(V, 1).cpu().numpy()  # exit state of the last segment
+    exit_states = np.empty((NS, C), np.int64)
+    rows = np.arange(C)
+    for t in range(NS - 1, -1, -1):
+        exit_states[t] = state
+        state = bps[t, rows, state]
+    entry_states = np.concatenate([state[None], exit_states[:-1]], 0)
+    m = socn >= 0
+    seg_entry = np.zeros(S, np.int32)
+    seg_exit = np.zeros(S, np.int32)
+    seg_entry[socn[m]] = entry_states.T[m]
+    seg_exit[socn[m]] = exit_states.T[m]
+    return (torch.as_tensor(seg_entry, device=dev),
+            torch.as_tensor(seg_exit, device=dev))
+
+
+def viterbi_segment_paths(T, E, keys, valid, seg_entry, seg_exit, block=None):
+    """Phase C: each segment's interior MAP path from its boundary states
+    (window_kernel.py:viterbi_segment_paths).  Returns path (S, L) int32,
+    the state after each window (the reference's (L, S) transposed; padding
+    windows repeat the adjacent state).  K5 on CUDA tensors; the blocked
+    mode (``block``, backpointers recomputed per block) runs only as the
+    plain version."""
+    if T.is_cuda:
+        if block is not None:
+            raise NotImplementedError(
+                "viterbi_segment_paths: the blocked backpointer mode has no "
+                "CUDA kernel yet (ROADMAP B6)"
+            )
+        return viterbi_paths_cuda(T, E, keys, valid, seg_entry, seg_exit)
+    return viterbi_paths_plain(T, E, keys, valid, seg_entry, seg_exit, block)
+
+
+def viterbi_windows(pi, T, E, keys, valid, seg_of_contig, row_ends, block=None):
+    """MAP (Viterbi) decode through the window kernels
+    (window_kernel.py:viterbi_windows): phase A (K4), phase B, phase C
+    (K5), then the state at each row's last window.  Returns (n_rows,)
+    int32."""
+    Wops = viterbi_segment_ops(T, E, keys, valid)
+    seg_entry, seg_exit = viterbi_boundary_states(pi, Wops, seg_of_contig)
+    path = viterbi_segment_paths(T, E, keys, valid, seg_entry, seg_exit,
+                                 block=block)
+    return path.reshape(-1)[row_ends].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # Host-side packing (NumPy; a copy of the JAX package's)
 # ---------------------------------------------------------------------------
+
+def pack_window_row_ids(spans_list, L, seg_of_contig):
+    """(S, L) global compressed-row index per window, matching the
+    segmentation ``pack_windows`` produced (same L, same segment order).
+    ``spans_list``: one int array of row spans per contig.  Padding
+    windows get the id of the row they follow (their gamma is exactly
+    zero).  Returns (row_ids, n_rows_total)."""
+    socn = np.asarray(seg_of_contig)
+    S = int(socn.max()) + 1
+    rid = np.zeros((S, L), dtype=np.int32)
+    off = 0
+    for c, spans in enumerate(spans_list):
+        spans = np.asarray(spans, dtype=np.int64)
+        ids = np.repeat(
+            np.arange(off, off + len(spans), dtype=np.int32), spans
+        )
+        for j, seg in enumerate(socn[c]):
+            if seg < 0:
+                break
+            chunk = ids[j * L : (j + 1) * L]
+            rid[seg, : len(chunk)] = chunk
+            if len(chunk) < L:
+                rid[seg, len(chunk):] = chunk[-1] if len(chunk) else off
+        off += len(spans)
+    return rid, off
+
+
+def pack_window_row_ends(spans_list, L, seg_of_contig):
+    """(n_rows,) int64 flat segment-major index of each row's last window,
+    strictly increasing: the gather points of the prefix-sum decode
+    (``decode_gammas_windows``).  Segment ids are assigned sequentially per
+    contig by pack_windows, so contig c's windows occupy the flat range
+    [first_seg_c * L, ...] with padding only at the contig's tail."""
+    socn = np.asarray(seg_of_contig)
+    ends = []
+    for c, spans in enumerate(spans_list):
+        base = int(socn[c, 0]) * L
+        within = np.cumsum(np.asarray(spans, dtype=np.int64)) - 1
+        ends.append(base + within)
+    out = np.concatenate(ends)
+    assert np.all(np.diff(out) > 0)
+    return out
+
 
 def remat_block_size(L):
     """Alpha-remat block size: the divisor of L nearest sqrt(L) that is a

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 asc_sweep, K2 dsc_sweep, K3 segment_ops)
-against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1 asc_sweep, K2 dsc_sweep, K2g dsc_sweep_gamma,
+K3 segment_ops, K4 viterbi_ops, K5 viterbi_paths) against their plain
+PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  On the GPU
 machine run them without the JAX-side conftest:
@@ -14,7 +15,8 @@ tests/test_pallas_sweeps.py).  At 'default' the carries are rounded to bf16
 at the same points on both sides, but an ulp-level f32 difference can flip
 a bf16 rounding: a stored bf16 value may differ by one bf16 ulp (at most
 2^-7 relative), and quantities computed from such carries are held at
-rtol 1e-3.
+rtol 1e-3.  K4 and K5 add and take maxima only, which round alike in any
+order: they must equal their plain versions exactly.
 """
 
 import numpy as np
@@ -98,8 +100,8 @@ def test_sweeps_match_plain(dev, M, precision, rtol):
 
 def test_large_key_table_uses_extended_shared_memory(dev):
     """500 keys at M = 32 put every kernel's shared memory over the 48 KB
-    default (K3 70 KB, K1 64 KB, K2 192 KB), the opt-in path; 1000 keys
-    would need more than a block can have, and K2 refuses it."""
+    default (K3 70 KB, K1 64 KB, K2 192 KB), the opt-in path.  Tables past
+    a block's shared memory: test_large_key_tables_match_plain."""
     T, E, keys, valid, A_in, Q_end = _problem(4, 24, 96, 32, 500, dev)
     ops, logs = wk.segment_ops_cuda(T, E, keys, valid, "highest")
     ops_p, logs_p = wk.segment_ops_plain(T, E, keys, valid, "highest")
@@ -112,10 +114,142 @@ def test_large_key_table_uses_extended_shared_memory(dev):
     torch.cuda.synchronize()
     _close(xo, xo_p, 1e-5, 1e-8)
     _close(gs, gs_p, 1e-5, 1e-8)
-    T, E, keys, valid, A_in, Q_end = _problem(5, 4, 64, 32, 1000, dev)
-    alphas, _ = wk.asc_sweep_cuda(T, E, keys, valid, A_in, "highest")
-    with pytest.raises(ValueError, match="shared memory"):
-        wk.dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end)
+
+
+@pytest.mark.parametrize("n_keys", [1000, 2000])
+@pytest.mark.parametrize("M", [16, 32])
+@pytest.mark.parametrize("precision,rtol", [("highest", 1e-5), ("default", 1e-3)])
+def test_large_key_tables_match_plain(dev, n_keys, M, precision, rtol):
+    """Tables past a block's shared memory (K2 from 606 keys at M = 32, K1
+    and K3 from about 1800): every kernel reads its emission rows from
+    global memory and agrees with its plain version."""
+    T, E, keys, valid, A_in, Q_end = _problem(6, 24, 96, M, n_keys, dev)
+    ops, logs = wk.segment_ops_cuda(T, E, keys, valid, precision)
+    ops_p, logs_p = wk.segment_ops_plain(T, E, keys, valid, precision)
+    _close(ops, ops_p, rtol, 1e-7)
+    _close(logs, logs_p, 1e-5, 1e-6)
+    alphas, a_end = wk.asc_sweep_cuda(T, E, keys, valid, A_in, precision)
+    alphas_p, a_end_p = wk.asc_sweep_plain(T, E, keys, valid, A_in, precision)
+    _close(alphas, alphas_p, BF16_ULP if precision == "default" else rtol, 1e-7)
+    _close(a_end, a_end_p, 1e-5, 1e-7)
+    alphas_p = alphas_p.contiguous()
+    u, xo, gs = wk.dsc_sweep_cuda(T, E, keys, valid, alphas_p, Q_end)
+    u_p, xo_p, gs_p = wk.dsc_sweep_plain(T, E, keys, valid, alphas_p, Q_end)
+    _close(u, u_p, 1e-5, 1e-7)
+    _close(xo, xo_p, 1e-5, 1e-8)
+    _close(gs, gs_p, 1e-5, 1e-8)
+    *_, gam = wk.dsc_sweep_gamma_cuda(T, E, keys, valid, alphas_p, Q_end)
+    *_, gam_p = wk.dsc_sweep_plain(T, E, keys, valid, alphas_p, Q_end, True)
+    _close(gam, gam_p, 1e-5, 1e-7)
+    W = wk.viterbi_ops_cuda(T, E, keys, valid)
+    assert torch.equal(W, wk.viterbi_ops_plain(T, E, keys, valid))
+    entry, exit_ = _states(7, 24, M, dev)
+    path = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+    torch.cuda.synchronize()
+    assert torch.equal(path, wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_))
+
+
+def _states(seed, S, M, dev):
+    rng = np.random.RandomState(seed)
+    return tuple(
+        torch.as_tensor(rng.randint(0, M, S).astype(np.int32), device=dev)
+        for _ in range(2)
+    )
+
+
+@pytest.mark.parametrize("M", MS)
+def test_dsc_sweep_gamma_matches_plain(dev, M):
+    T, E, keys, valid, A_in, Q_end = _problem(8, 40, 200, M, 89, dev)
+    alphas, _ = wk.asc_sweep_plain(T, E, keys, valid, A_in, "highest")
+    before = wk.DSC_SWEEP_GAMMA.launches
+    u, xo, gs, gam = wk.dsc_sweep_gamma_cuda(T, E, keys, valid, alphas, Q_end)
+    torch.cuda.synchronize()
+    assert wk.DSC_SWEEP_GAMMA.launches == before + 1
+    u_p, xo_p, gs_p, gam_p = wk.dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, True)
+    assert gam.shape == (40, 200, M) and gam.dtype == torch.float32
+    _close(gam, gam_p, 1e-5, 1e-7)
+    _close(u, u_p, 1e-5, 1e-7)
+    _close(gs, gs_p, 1e-5, 1e-8)
+    # each valid window's posterior sums to one; invalid windows hold zero
+    sums = gam.sum(-1)
+    torch.testing.assert_close(sums[valid], torch.ones_like(sums[valid]),
+                               rtol=0, atol=1e-5)
+    assert float(gam[~valid].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("M", MS)
+def test_viterbi_ops_matches_plain(dev, M):
+    T, E, keys, valid, _, _ = _problem(9, 40, 200, M, 89, dev)
+    before = wk.VITERBI_OPS.launches
+    W = wk.viterbi_ops_cuda(T, E, keys, valid)
+    torch.cuda.synchronize()
+    assert wk.VITERBI_OPS.launches == before + 1
+    assert torch.equal(W, wk.viterbi_ops_plain(T, E, keys, valid))
+
+
+@pytest.mark.parametrize("M", MS)
+def test_viterbi_paths_matches_plain(dev, M):
+    T, E, keys, valid, _, _ = _problem(10, 40, 200, M, 89, dev)
+    entry, exit_ = _states(11, 40, M, dev)
+    before = wk.VITERBI_PATHS.launches
+    path = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+    torch.cuda.synchronize()
+    assert wk.VITERBI_PATHS.launches == before + 1
+    assert path.shape == (40, 200) and path.dtype == torch.int32
+    assert torch.equal(path, wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_))
+    # a boundary state outside [0, M) would index past the backpointers
+    exit_[3] = M
+    with pytest.raises(ValueError, match="boundary states"):
+        wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+
+
+def _decode_problem(seed, dev):
+    "Two contigs of span-compressed rows packed to windows, with row ends."
+    rng = np.random.RandomState(seed)
+    M, n_keys = 16, 30
+    data = []
+    for n_rows in (700, 400):
+        d = np.zeros((n_rows, 2), np.int64)
+        d[:, 0] = rng.randint(1, 20, n_rows)
+        d[:, 1] = rng.randint(0, n_keys, n_rows)
+        data.append(d)
+    key_id = {(k,): k for k in range(n_keys)}
+    keys, valid, soc = wk.pack_windows(data, key_id, seg_target=16, min_seg_len=64)
+    ends = wk.pack_window_row_ends([d[:, 0] for d in data], keys.shape[1], soc)
+    pi = rng.dirichlet(np.ones(M))
+    T = rng.dirichlet(np.ones(M) * 5, size=M) + np.eye(M) * 5
+    T /= T.sum(1, keepdims=True)
+    E = rng.uniform(0.05, 1.0, (n_keys, M))
+    cpu = (*wk.from_numpy(pi, T, E, "cpu"), torch.as_tensor(keys),
+           torch.as_tensor(valid), soc, torch.as_tensor(ends))
+    gpu = (*wk.from_numpy(pi, T, E, dev), torch.as_tensor(keys, device=dev),
+           torch.as_tensor(valid, device=dev), soc, torch.as_tensor(ends, device=dev))
+    return cpu, gpu, [d[:, 0] for d in data]
+
+
+def test_decode_gammas_windows_cuda_matches_plain(dev):
+    cpu, gpu, spans = _decode_problem(12, dev)
+    ll, g = wk.decode_gammas_windows(*gpu)
+    ll_p, g_p = wk.decode_gammas_windows(*cpu)
+    _close(ll.reshape(1), ll_p.reshape(1), 1e-5, 0.0)
+    # row masses are differences of f32 prefix sums that reach PREFIX_BLOCK
+    # windows, summed in another order on the card (a parallel scan): each
+    # carries a few f32 ulps of PREFIX_BLOCK, absolute
+    atol = 4 * wk.PREFIX_BLOCK * 2.0**-24
+    torch.testing.assert_close(g.cpu(), g_p, rtol=1e-4, atol=atol)
+    np.testing.assert_allclose(g.sum(1).cpu().numpy(), np.concatenate(spans),
+                               rtol=1e-4)
+
+
+def test_viterbi_windows_cuda_matches_plain(dev):
+    cpu, gpu, _ = _decode_problem(13, dev)
+    got = wk.viterbi_windows(*gpu).cpu()
+    want = wk.viterbi_windows(*cpu)
+    # log T and log E come from the card's and the CPU's logf: an ulp apart
+    # at most, which can flip a near-tie
+    assert float((got == want).double().mean()) >= 0.999
+    with pytest.raises(NotImplementedError, match="B6"):
+        wk.viterbi_windows(*gpu, block=8)
 
 
 def test_estep_direct_cuda_matches_plain(dev):
@@ -135,7 +269,13 @@ def test_unsupported_modes_raise_on_cuda(dev):
     T, E, keys, valid, A_in, Q_end = _problem(3, 8, 64, 16, 20, dev)
     with pytest.raises(NotImplementedError, match="B3"):
         wk.stats_pass(T, E, keys, valid, A_in, Q_end, alpha_remat=8)
-    with pytest.raises(NotImplementedError, match="B5"):
-        wk.stats_pass(T, E, keys, valid, A_in, Q_end, emit_gamma=True)
+    # the emit_gamma mode is ported: K1 then K2g
+    got = wk.stats_pass(T, E, keys, valid, A_in, Q_end, precision="highest",
+                        emit_gamma=True)
+    want = wk.stats_pass(*(x.cpu() for x in (T, E, keys, valid, A_in, Q_end)),
+                         precision="highest", emit_gamma=True)
+    assert len(got) == 5 and got[4].shape == (8, 64, 16)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5, 1e-7)
     with pytest.raises(TypeError):
         wk.segment_ops_cuda(T.double(), E.double(), keys, valid, "highest")

@@ -162,6 +162,23 @@ def test_estep_direct(precision, dtype, M):
     assert abs(float(got[3].sum()) - valid.sum()) < 1e-6 * valid.sum()
 
 
+def test_estep_direct_large_key_table():
+    """700 keys at M = 32: past the reference's one-hot limit (384 keys,
+    where it gathers and streams e_all) and past the 605 keys whose K2
+    tables fit a block's shared memory on the card."""
+    pi, T, E, keys, valid, _, _ = _problem(6, 9, 64, 32, 700, np.float32)
+    soc = _soc(9, 2)
+    ref = jwk.estep_direct(*map(jnp.asarray, (pi, T, E, keys, valid)), soc,
+                           precision="highest")
+    pi_t, T_t, E_t = twk.from_numpy(pi, T, E, "cpu")
+    got = twk.estep_direct(pi_t, T_t, E_t, torch.as_tensor(keys),
+                           torch.as_tensor(valid), soc, precision="highest")
+    rtol, atol = BOUNDS[("highest", np.float32)]
+    for g, r in zip(got, ref):
+        _close(g, r, rtol, atol)
+    assert abs(float(got[3].sum()) - valid.sum()) < 1e-6 * valid.sum()
+
+
 def test_unported_modes_raise():
     _, T, E, keys, valid, A_in, Q_end = map(
         torch.as_tensor, _problem(5, 4, 64, 16, 20, np.float32)
@@ -170,8 +187,12 @@ def test_unported_modes_raise():
         twk.stats_pass(T, E, keys, valid, A_in, Q_end, e_all=E)
     with pytest.raises(NotImplementedError, match="B3"):
         twk.stats_pass(T, E, keys, valid, A_in, Q_end, alpha_remat=8)
-    with pytest.raises(NotImplementedError, match="B5"):
-        twk.stats_pass(T, E, keys, valid, A_in, Q_end, emit_gamma=True)
+    # the emit_gamma mode is ported: the stream is (S, L, M), one posterior
+    # per window that sums to 1 where the window is valid
+    *_, gam = twk.stats_pass(T, E, keys, valid, A_in, Q_end, emit_gamma=True)
+    assert gam.shape == (4, 64, 16) and gam.dtype == torch.float32
+    sums = gam.sum(-1)
+    torch.testing.assert_close(sums[valid], torch.ones_like(sums[valid]))
 
 
 def test_check_key_range():
