@@ -30,13 +30,22 @@ Phases, in order; any failure ends the script with a non-zero exit:
    of the six kernels against its plain version on the posterior manager's
    own inputs, restricted to its first 32 segments;
 6. ``estep_direct`` alone at the bench.py C3 shape (22 x 2.5e6 windows,
-   M=16, 128 keys; median of 3 runs), in Gbp/s.
+   M=16, 128 keys, drawn by the port's copy of bench.py's ``synth_contig``;
+   median of 3 runs), in Gbp/s, then the SM clock under load.
+
+Every kernel time is printed beside its bound: the least time the card
+could take for the same work on the same inputs, the larger of its
+operations over the peak rate of their type and the bytes it must move
+(each input read once, each output written once) over the memory rate
+(``bound``).  No single PyTorch call computes any of these kernels (each is
+a serial scan with a renormalisation at every step), so ``library_ms`` is
+null.
 
 The line before the last is the kernels' JSON record (launches from each
 kernel's own path: K1-K3 from phase 4's estimate, K2g, K4 and K5 from phase
-5's posterior; errors and times from the comparison on that path's own
-inputs); the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero
-without a result when no CUDA device is present.
+5's posterior; errors, times and bounds from the comparison on that path's
+own inputs); the last line is ``{"ok": true, "device": {...}}``.  Exits
+non-zero without a result when no CUDA device is present.
 """
 
 import json
@@ -56,6 +65,15 @@ HIGHEST_RTOL = 1e-5  # exact-f32 recursions in another summation order
 DEFAULT_RTOL = 1e-3  # bf16 carries: a rounding may flip by one bf16 ulp
 BF16_ULP = 2.0**-7
 
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): 67 TFLOP/s in
+# float32 outside the tensor cores, 34 TFLOP/s in float64, 3.35 TB/s of
+# HBM3.  An FMA, add, max or select counts as one operation at the FMA rate
+# (half the FLOP/s figure): 128 float32 and 64 float64 per clock per SM at
+# 1.98 GHz.
+F32_OPS_PER_S = 67e12 / 2
+F64_OPS_PER_S = 34e12 / 2
+HBM_BYTES_PER_S = 3.35e12
+
 
 def log(*a):
     print(*a, flush=True)
@@ -74,6 +92,46 @@ def card():
     log("torch device:", torch.cuda.get_device_name(0), "| torch",
         torch.__version__, "cuda", torch.version.cuda)
     return smi
+
+
+def bound(name, E, keys, valid, elt=4):
+    """(bound_ms, bound_by) of one launch of kernel ``name`` on these inputs:
+    the larger of its operations over the peak rate of their type and the
+    bytes it must move (each input read once, each output written once) over
+    the memory rate.  ``elt`` is the byte width of the alpha stream.
+    Operations count the valid windows (an invalid window skips the step's
+    arithmetic); streams count every window.
+
+      K3 segment_ops      M^3 FMA per window; keys, valid in, (S, M, M) out
+      K1 asc_sweep        M^2 FMA; keys, valid, A_in in, the alpha stream out
+      K2 dsc_sweep        2 M^2 f32 FMA and M^2 f64 add; the alpha stream in
+      K2g dsc_sweep_gamma K2, plus the (S, L, M) f32 gamma stream out
+      K4 viterbi_ops      M^3 add and M^3 max; (S, M, M) out
+      K5 viterbi_paths    3 M^2 add, max and select; (S, L) int32 path out
+    """
+    S, L = keys.shape
+    n_keys, M = E.shape
+    W, nv = S * L, int(valid.sum())
+    b = 5 * W + 4 * (M * M + n_keys * M)  # keys, valid, T and E
+    f64 = 0
+    if name == "segment_ops":
+        f32, b = nv * M**3, b + 4 * S * (M * M + 1)
+    elif name == "asc_sweep":
+        f32, b = nv * M * M, b + W * M * elt + 8 * S * M
+    elif name in ("dsc_sweep", "dsc_sweep_gamma"):
+        f32, f64 = 2 * nv * M * M, nv * M * M
+        b += W * M * elt + 8 * S * M + 8 * (M * M + n_keys * M)
+        if name == "dsc_sweep_gamma":
+            b += 4 * W * M
+    elif name == "viterbi_ops":
+        f32, b = 2 * nv * M**3, b + 4 * S * M * M
+    elif name == "viterbi_paths":
+        f32, b = 3 * nv * M * M, b + 4 * W + 8 * S
+    else:
+        raise ValueError(name)
+    t_ops = max(f32 / F32_OPS_PER_S, f64 / F64_OPS_PER_S)
+    t_bytes = b / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def build():
@@ -173,14 +231,16 @@ def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
         raise AssertionError(f"dsc_sweep [{tag}]: sum(gsum) != valid windows")
     t2 = cuda_ms(lambda: wk.dsc_sweep_cuda(T, E, keys, valid, al_p, Q_end), reps)
     t2p = cuda_ms(lambda: wk.dsc_sweep_plain(T, E, keys, valid, al_p, Q_end), 1)
-    log(f"[{tag}] ms kernel/plain: segment_ops {t3:.3f}/{t3p:.1f} "
-        f"asc_sweep {t1:.3f}/{t1p:.1f} dsc_sweep {t2:.3f}/{t2p:.1f}; "
-        f"max abs err {e3:.2e} {e1:.2e} {e2:.2e}")
-    return {
-        "segment_ops": (e3, t3, t3p),
-        "asc_sweep": (e1, t1, t1p),
-        "dsc_sweep": (e2, t2, t2p),
+    elt = al_p.element_size()
+    rec = {
+        "segment_ops": (e3, t3, t3p, *bound("segment_ops", E, keys, valid)),
+        "asc_sweep": (e1, t1, t1p, *bound("asc_sweep", E, keys, valid, elt)),
+        "dsc_sweep": (e2, t2, t2p, *bound("dsc_sweep", E, keys, valid, elt)),
     }
+    log(f"[{tag}] ms kernel/plain/bound: "
+        + " ".join(f"{n} {r[1]:.3f}/{r[2]:.1f}/{r[3]:.4f}" for n, r in rec.items())
+        + f"; max abs err {e3:.2e} {e1:.2e} {e2:.2e}")
+    return rec
 
 
 def check_equal(name, got, want):
@@ -222,14 +282,15 @@ def compare_decode(tag, T, E, keys, valid, A_in, Q_end, entry, exit_, reps):
     )
     t5 = cuda_ms(lambda: wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_), reps)
     t5p = cuda_ms(lambda: wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_), 1)
-    log(f"[{tag}] ms kernel/plain: dsc_sweep_gamma {tg:.3f}/{tgp:.1f} "
-        f"viterbi_ops {t4:.3f}/{t4p:.1f} viterbi_paths {t5:.3f}/{t5p:.1f}; "
-        f"max abs err {eg:.2e} {e4:.2e} {e5:.2e}")
-    return {
-        "dsc_sweep_gamma": (eg, tg, tgp),
-        "viterbi_ops": (e4, t4, t4p),
-        "viterbi_paths": (e5, t5, t5p),
+    rec = {
+        "dsc_sweep_gamma": (eg, tg, tgp, *bound("dsc_sweep_gamma", E, keys, valid)),
+        "viterbi_ops": (e4, t4, t4p, *bound("viterbi_ops", E, keys, valid)),
+        "viterbi_paths": (e5, t5, t5p, *bound("viterbi_paths", E, keys, valid)),
     }
+    log(f"[{tag}] ms kernel/plain/bound: "
+        + " ".join(f"{n} {r[1]:.3f}/{r[2]:.1f}/{r[3]:.4f}" for n, r in rec.items())
+        + f"; max abs err {eg:.2e} {e4:.2e} {e5:.2e}")
+    return rec
 
 
 def states(seed, S, M):
@@ -417,6 +478,14 @@ def phase_times(label, shape, phases):
     parts = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     log(f"{label} breakdown [{shape}]: total {sum(parts):.2f} ms; "
         + ", ".join(f"{n} {t:.2f}" for n, t in zip(names, parts)))
+    return dict(zip(names, parts))
+
+
+def log_bounds(label, times, bounds):
+    """Each kernel phase's time beside its bound (``bound``) at the phase's
+    own shape: {phase name: (bound_ms, bound_by)}."""
+    log(f"{label} kernels, ms / bound ms (bound by): " + ", ".join(
+        f"{n} {times[n]:.3f} / {b:.4f} ({by})" for n, (b, by) in bounds.items()))
 
 
 def posterior_breakdown(im, pi, T, E):
@@ -455,8 +524,16 @@ def posterior_breakdown(im, pi, T, E):
         path.reshape(-1)[ends]
         yield "row gather"
 
-    phase_times("decode", shape, decode)
-    phase_times("Viterbi", shape, viterbi)
+    t = phase_times("decode", shape, decode)
+    t.update(phase_times("Viterbi", shape, viterbi))
+    elt = wk.carry_dtype(prec, torch.float32).itemsize
+    log_bounds("posterior", t, {
+        "segment_ops (K3)": bound("segment_ops", E, keys, valid),
+        "asc_sweep (K1)": bound("asc_sweep", E, keys, valid, elt),
+        "dsc_sweep_gamma (K2g)": bound("dsc_sweep_gamma", E, keys, valid, elt),
+        "viterbi_ops (K4)": bound("viterbi_ops", E, keys, valid),
+        "viterbi_paths (K5)": bound("viterbi_paths", E, keys, valid),
+    })
 
 
 def compare_posterior(im, pi, T, E, n_seg=32):
@@ -582,15 +659,21 @@ def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
         wk.boundary_stats(pi, T, a_end, u, xo, soc, cvalid)
         yield "boundary_stats"
 
-    phase_times(f"E-step [{label}]", f"S x L = {tuple(keys.shape)}, M = "
-                f"{T.shape[0]}, {E.shape[0]} keys", phases)
+    t = phase_times(f"E-step [{label}]", f"S x L = {tuple(keys.shape)}, M = "
+                    f"{T.shape[0]}, {E.shape[0]} keys", phases)
+    elt = wk.carry_dtype(precision, torch.float32).itemsize
+    log_bounds(f"E-step [{label}]", t, {
+        "segment_ops (K3)": bound("segment_ops", E, keys, valid),
+        "asc_sweep (K1)": bound("asc_sweep", E, keys, valid, elt),
+        "dsc_sweep (K2)": bound("dsc_sweep", E, keys, valid, elt),
+    })
 
 
 def c3_throughput():
     "estep_direct at the bench.py C3 shape, median of 3 timed runs."
     import torch
 
-    from bench import synth_contig
+    from smcpp_tpu_torch.data.simulate import synth_contig
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     torch.cuda.reset_peak_memory_stats()
@@ -623,6 +706,12 @@ def c3_throughput():
     log(f"C3 E-step: S x L = {keys.shape}, {dt * 1e3:.1f} ms (median of 3), "
         f"{C * WINDOWS * W / dt / 1e9:.2f} Gbp/s, peak mem "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(f"SM clock, max SM clock, power draw right after the C3 runs: {smi}")
 
 
 def main():
@@ -643,11 +732,12 @@ def main():
         records[name] = post_records[name]
     kernels = []
     for k in wk.KERNELS:
-        err, ms, plain_ms = records[k.name]
+        err, ms, plain_ms, bound_ms, bound_by = records[k.name]
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[k.name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

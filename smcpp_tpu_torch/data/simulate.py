@@ -6,6 +6,9 @@ from (pi, T), and per-site observations from the theta-incorporated CSFS —
 the exact generative process the inference engine fits.  The model tensors
 are computed in float64 on the CPU; the sampling is NumPy with an explicit
 ``RandomState``.
+
+``synth_contig`` is a copy of bench.py's synthetic observation stream (the
+E-step shape of the C3 benchmark cell), drawn from a ``numpy.random.Generator``.
 """
 
 import numpy as np
@@ -90,3 +93,43 @@ def write_simulated(fn, model, theta, rho, L, n, seed=0, pid="pop1"):
     undist = [[["sim_u", i] for i in range(n)]]
     fmt.write_contig(fn, data, [pid], dist, undist)
     return fn
+
+
+def synth_contig(rng, n_windows, n_keys, full_key_lo):
+    """Span-compressed (span, key) rows of ``n_windows`` windows in all,
+    mimicking thinned and binned human data: mostly short runs of keys 0-2
+    (nonsegregating and dinucleotide windows), some long ones, and sparse
+    single windows of keys in [full_key_lo, n_keys).  ``rng`` is a
+    ``numpy.random.Generator``; the same generator state gives the same rows
+    as bench.py's ``synth_contig``."""
+    out_spans = []
+    out_keys = []
+    total = 0
+    while total < n_windows:
+        m = 200_000
+        r = rng.random(m)
+        spans = np.where(
+            r < 0.80,
+            rng.geometric(0.45, m),
+            np.where(r < 0.97, rng.geometric(0.02, m), 1),
+        ).astype(np.int64)
+        keys = np.where(
+            r < 0.97,
+            rng.integers(0, 3, m),
+            rng.integers(full_key_lo, n_keys, m),
+        ).astype(np.int32)
+        cs = np.cumsum(spans)
+        take = np.searchsorted(cs, n_windows - total, side="left") + 1
+        take = min(take, m)
+        spans = spans[:take]
+        keys = keys[:take]
+        overshoot = int(np.sum(spans)) - (n_windows - total)
+        if overshoot > 0:
+            spans[-1] -= overshoot
+        total += int(np.sum(spans))
+        out_spans.append(spans)
+        out_keys.append(keys)
+    s = np.concatenate(out_spans)
+    k = np.concatenate(out_keys)
+    keep = s > 0
+    return np.c_[s[keep], k[keep]].astype(np.int64)

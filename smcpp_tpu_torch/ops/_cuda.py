@@ -38,7 +38,8 @@ _SIGNATURES = {
     },
     "dsc_kernels.cu": {
         "smcpp_dsc_sweep": [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P,
         ],
     },
     "viterbi_kernels.cu": {

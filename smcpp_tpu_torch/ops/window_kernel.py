@@ -45,13 +45,19 @@ RESCALE_EVERY = 8
 FLOOR = 1e-35
 MATMUL_PRECISION = "default"
 
-# Blocks of the descending sweep (K2): each block is one warp that walks the
-# segments blockIdx, blockIdx + G, ... and owns one f64 partial of xisum and
-# gsum.  A fixed count keeps the reduction order independent of the card.
-DSC_BLOCKS = 1024
-# Budget of K2's per-block f64 gsum partials, G x n_keys x M x 8 bytes: a
-# large key table lowers G (it is 1024 up to 1024 keys at M = 32).
+# The descending sweep (K2, K2g): warps per block, one segment each.  The
+# partition of segments into blocks, and so the order in which the f64
+# partials are formed, depends on (S, n_keys, M) only (dsc_plan), never on
+# the card.
+DSC_WARPS = 8
+# Budget of K2's per-block f64 gsum partials, G x n_keys x M x 8 bytes: where
+# it binds, each warp walks more segments (G falls).
 GSUM_PART_BYTES = 256 << 20
+# K2 adds each window's per-key masses in 64-bit fixed point with this many
+# fractional bits (FIX_SCALE in csrc/dsc_kernels.cu); an entry of a block's
+# table stays below (segments per block) x L x 2^GSUM_FRAC_BITS, which must
+# stay under 2^62.
+GSUM_FRAC_BITS = 40
 
 
 def carry_dtype(precision, base_dtype):
@@ -229,6 +235,28 @@ def asc_sweep_cuda(T, E, keys, valid, A_in, precision):
     return alphas, alpha_end
 
 
+def dsc_plan(S, L, n_keys, M):
+    """The grid of K2 / K2g: (warps per block, segments per warp, blocks).
+
+    Warp w of block b walks segments (b R + r) W + w, r < R.  R is 1 unless
+    the f64 gsum partials (one n_keys x M table per block) would pass
+    GSUM_PART_BYTES; then R grows until they fit.  A function of (S, n_keys,
+    M) only.  Raises when a block's 64-bit fixed-point gsum table could
+    overflow: (segments per block) x L x 2^GSUM_FRAC_BITS must stay under
+    2^62."""
+    warps = DSC_WARPS
+    max_blocks = max(1, GSUM_PART_BYTES // (8 * n_keys * M))
+    seg_per_warp = max(1, -(-S // (warps * max_blocks)))
+    n_blocks = -(-S // (warps * seg_per_warp))
+    if warps * seg_per_warp * L << GSUM_FRAC_BITS >= 1 << 62:
+        raise ValueError(
+            f"dsc_sweep: {warps * seg_per_warp} segments of {L} windows per "
+            f"block overflow the 64-bit fixed-point gsum table "
+            f"({n_keys} keys, M = {M})"
+        )
+    return warps, seg_per_warp, n_blocks
+
+
 def _dsc_launch(kernel, T, E, keys, valid, alphas, Q_end, gam):
     "Launch K2 (gam None) or K2g (gam the (S, L, M) f32 output)."
     _check_inputs(T, E, keys, valid, Q_end)
@@ -239,7 +267,7 @@ def _dsc_launch(kernel, T, E, keys, valid, alphas, Q_end, gam):
         raise ValueError("alphas must be the (S, L, M) stream of asc_sweep_cuda")
     if alphas.device != T.device or not alphas.is_contiguous():
         raise ValueError("alphas must be a contiguous tensor on T's device")
-    G = max(1, min(S, DSC_BLOCKS, GSUM_PART_BYTES // (8 * n_keys * M)))
+    warps, seg_per_warp, G = dsc_plan(S, L, n_keys, M)
     u_start = torch.empty((S, M), dtype=torch.float32, device=T.device)
     xo_part = torch.empty((G, M, M), dtype=torch.float64, device=T.device)
     gsum_part = torch.empty((G, n_keys, M), dtype=torch.float64, device=T.device)
@@ -249,8 +277,8 @@ def _dsc_launch(kernel, T, E, keys, valid, alphas, Q_end, gam):
         lib.smcpp_dsc_sweep(
             T.data_ptr(), E.data_ptr(), keys.data_ptr(), valid.data_ptr(),
             alphas.data_ptr(), Q_end.data_ptr(), S, L, M, n_keys,
-            int(alphas.dtype == torch.bfloat16), G, u_start.data_ptr(),
-            xo_part.data_ptr(), gsum_part.data_ptr(),
+            int(alphas.dtype == torch.bfloat16), warps, seg_per_warp, G,
+            u_start.data_ptr(), xo_part.data_ptr(), gsum_part.data_ptr(),
             None if gam is None else gam.data_ptr(), _stream(T.device),
         ),
         kernel.name,
@@ -261,15 +289,20 @@ def _dsc_launch(kernel, T, E, keys, valid, alphas, Q_end, gam):
 def dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end):
     """K2 (replaces pallas_sweeps.py:_dsc_kernel).
 
-    What bounds it: serial depth (L windows per segment) and the f64
-    accumulation of M^2 xisum terms per window.  Design: one warp per block
-    walking segments in a fixed stride; lane j owns q[j], u[j], row j of T
-    and row j of the f64 xisum accumulator in registers, gets u by warp
-    shuffle, and adds its column of the per-key masses into the block's f64
-    gsum table (shared memory when it fits, else the block's own slice of
-    the partials in global memory; no two lanes share an address, so no
-    atomics).  Per-block partials are summed here with one torch.sum in f64.
-    Returns (u_start (S, M) f32, xo (M, M) f64, gsum (n_keys, M) f64)."""
+    What bounds it: serial depth (L dependent window steps per segment, each
+    behind two warp reductions) and 2 M^2 f32 FMAs and M^2 f64 adds per
+    window.  Design (csrc/dsc_kernels.cu): one warp per segment, DSC_WARPS
+    warps per block (dsc_plan); lane j owns q[j], u[j], row j of T and row
+    j of the xisum accumulator in registers; u is broadcast through shared
+    memory; each 32-window chunk of the alpha stream is copied with
+    cp.async into a per-warp double buffer while the chunk before it runs;
+    xisum terms are summed in f32 over a chunk, then added in f64.  The
+    per-key masses go into one 64-bit fixed-point table per block (integer
+    atomics, so the sum does not depend on the order of the block's warps),
+    in shared memory when it fits, else in the block's slice of the
+    partials in global memory.  The per-block partials are summed here with
+    one torch.sum in f64.  Returns (u_start (S, M) f32, xo (M, M) f64, gsum
+    (n_keys, M) f64)."""
     return _dsc_launch(DSC_SWEEP, T, E, keys, valid, alphas, Q_end, None)
 
 

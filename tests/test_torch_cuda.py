@@ -16,7 +16,9 @@ at the same points on both sides, but an ulp-level f32 difference can flip
 a bf16 rounding: a stored bf16 value may differ by one bf16 ulp (at most
 2^-7 relative), and quantities computed from such carries are held at
 rtol 1e-3.  K4 and K5 add and take maxima only, which round alike in any
-order: they must equal their plain versions exactly.
+order: they must equal their plain versions exactly.  K2 and K2g sum their
+partials in an order fixed by (S, n_keys, M) (gsum in 64-bit fixed point,
+xisum in warp order), so two launches must agree bit for bit.
 """
 
 import numpy as np
@@ -100,8 +102,10 @@ def test_sweeps_match_plain(dev, M, precision, rtol):
 
 def test_large_key_table_uses_extended_shared_memory(dev):
     """500 keys at M = 32 put every kernel's shared memory over the 48 KB
-    default (K3 70 KB, K1 64 KB, K2 192 KB), the opt-in path.  Tables past
-    a block's shared memory: test_large_key_tables_match_plain."""
+    default, the opt-in path: K3 70 KB, K1 64 KB; K2's tables (192 KB) with
+    its eight warps' f32 alpha buffers and u vectors (66 KB) pass a block's
+    227 KB, so K2 takes the global-table route with 66 KB of shared memory.
+    Tables past a block's shared memory: test_large_key_tables_match_plain."""
     T, E, keys, valid, A_in, Q_end = _problem(4, 24, 96, 32, 500, dev)
     ops, logs = wk.segment_ops_cuda(T, E, keys, valid, "highest")
     ops_p, logs_p = wk.segment_ops_plain(T, E, keys, valid, "highest")
@@ -279,3 +283,106 @@ def test_unsupported_modes_raise_on_cuda(dev):
         _close(g, w, 1e-5, 1e-7)
     with pytest.raises(TypeError):
         wk.segment_ops_cuda(T.double(), E.double(), keys, valid, "highest")
+
+
+# --- K2 / K2g: the one-warp-per-segment body (csrc/dsc_kernels.cu) -------
+
+# key count whose tables (12 B x n_keys x M) pass a block's 227 KB, so the
+# kernel takes the global-memory route for the emission and gsum tables
+def _keys_past_smem(M):
+    return max(2000, 232448 // (12 * M) + 1)
+
+
+def _dsc_inputs(seed, S, L, M, n_keys, dev, precision="highest", p_valid=0.9):
+    """Inputs of the descending sweep: the plain ascending sweep's alpha
+    stream (carry dtype of ``precision``) on random T, E, keys and valid."""
+    rng = np.random.RandomState(seed)
+    T = rng.dirichlet(np.ones(M), size=M)
+    E = rng.uniform(0.05, 1.0, (n_keys, M))
+    keys = rng.randint(0, n_keys, (S, L)).astype(np.int32)
+    valid = rng.rand(S, L) < p_valid
+    A_in, Q_end = rng.rand(S, M), rng.rand(S, M)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    T, E, A_in, Q_end = f(T), f(E), f(A_in), f(Q_end)
+    keys = torch.as_tensor(keys, device=dev)
+    valid = torch.as_tensor(valid, device=dev)
+    return T, E, keys, valid, A_in, Q_end, precision
+
+
+def _check_dsc(T, E, keys, valid, A_in, Q_end, precision):
+    """K2 and K2g against dsc_sweep_plain on the same alpha stream (rtol
+    1e-5, the module's bound); K2g's u, xo and gsum equal K2's bit for bit;
+    gsum sums to the number of valid windows (to 1e-6)."""
+    alphas, _ = wk.asc_sweep_plain(T, E, keys, valid, A_in, precision)
+    alphas = alphas.contiguous()
+    u, xo, gs = wk.dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end)
+    u2, xo2, gs2, gam = wk.dsc_sweep_gamma_cuda(T, E, keys, valid, alphas, Q_end)
+    u_p, xo_p, gs_p, gam_p = wk.dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, True)
+    torch.cuda.synchronize()
+    _close(u, u_p, 1e-5, 1e-7)
+    _close(xo, xo_p, 1e-5, 1e-8)
+    _close(gs, gs_p, 1e-5, 1e-8)
+    _close(gam, gam_p, 1e-5, 1e-7)
+    for a, b in ((u, u2), (xo, xo2), (gs, gs2)):
+        assert torch.equal(a, b)
+    nv = float(valid.sum())
+    assert abs(float(gs.sum()) - nv) <= 1e-6 * max(nv, 1.0)
+    return gs
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("M", [2, 15, 16, 17, 32])
+def test_dsc_sweep_table_routes_match_plain(dev, M, route):
+    "89 keys keep the tables in shared memory; past 227 KB they go global."
+    n_keys = 89 if route == "shared" else _keys_past_smem(M)
+    _check_dsc(*_dsc_inputs(20, 40, 200, M, n_keys, dev))
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("M,precision", [(16, "default"), (32, "highest")])
+def test_dsc_sweep_is_bitwise_repeatable(dev, M, precision, route):
+    """Two launches give identical u, xo and gsum, and K2g's gamma: 70
+    segments fill nine blocks whose warps add to one gsum table at once."""
+    n_keys = 89 if route == "shared" else _keys_past_smem(M)
+    T, E, keys, valid, A_in, Q_end, _ = _dsc_inputs(21, 70, 200, M, n_keys, dev)
+    alphas, _ = wk.asc_sweep_plain(T, E, keys, valid, A_in, precision)
+    alphas = alphas.contiguous()
+    for fn in (wk.dsc_sweep_cuda, wk.dsc_sweep_gamma_cuda):
+        a = fn(T, E, keys, valid, alphas, Q_end)
+        b = fn(T, E, keys, valid, alphas, Q_end)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+# (S, L): one segment; S not a multiple of the 8 warps of a block; L not a
+# multiple of the 32-window chunk, and one short chunk; L = 13 at M = 5 makes
+# the stream's chunks unaligned (13 x 5 x elt bytes), read with plain loads
+@pytest.mark.parametrize("S,L", [(1, 200), (13, 200), (13, 8), (9, 13)])
+@pytest.mark.parametrize("M", [5, 16, 32])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_dsc_sweep_edge_shapes_match_plain(dev, S, L, M, precision):
+    _check_dsc(*_dsc_inputs(22, S, L, M, 89, dev, precision))
+
+
+def test_dsc_sweep_one_key_everywhere(dev):
+    """Every window of every segment has the same key: all the warps of a
+    block add to one row of the gsum table at every step."""
+    T, E, keys, valid, A_in, Q_end, prec = _dsc_inputs(23, 40, 200, 16, 89, dev)
+    keys.fill_(7)
+    gs = _check_dsc(T, E, keys, valid, A_in, Q_end, prec)
+    assert float(gs[7].sum()) == pytest.approx(float(valid.sum()), rel=1e-6)
+    assert float(gs.abs().sum() - gs[7].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("M", [15, 32])
+def test_dsc_sweep_invalid_runs_across_chunks(dev, M):
+    """Runs of invalid windows across the 32-window chunk boundaries: a run
+    over l = 32 and 64, the top of every segment, one whole segment, and
+    the first half of another."""
+    T, E, keys, valid, A_in, Q_end, prec = _dsc_inputs(24, 24, 200, M, 89, dev)
+    valid[:, 20:70] = False
+    valid[::2, 180:] = False
+    valid[5] = False
+    valid[6, :100] = False
+    _check_dsc(T, E, keys, valid, A_in, Q_end, prec)

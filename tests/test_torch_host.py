@@ -3,7 +3,9 @@ ported by copy must give byte-identical results.
 
 Covers the .smc.gz format round trip, the data-filter pipeline (native and
 NumPy paths), the emission index, the observation and window packing, the
-time grid, the exact Moran matrices and hidden-state balancing.
+time grid, the exact Moran matrices and hidden-state balancing, the copy of
+bench.py's synthetic stream, and the host-side grid plan of the descending
+sweep kernel (K2).
 """
 
 import gzip
@@ -30,6 +32,7 @@ from smcpp_tpu_torch import util as tutil  # noqa: E402
 from smcpp_tpu_torch.data import filters as tfilt  # noqa: E402
 from smcpp_tpu_torch.data import format as tfmt  # noqa: E402
 from smcpp_tpu_torch.data.simulate import simulate_contig as tsim  # noqa: E402
+from smcpp_tpu_torch.data.simulate import synth_contig as tsynth  # noqa: E402
 from smcpp_tpu_torch.inference import estimation as test_  # noqa: E402
 from smcpp_tpu_torch.inference import manager as tman  # noqa: E402
 from smcpp_tpu_torch.models.model import SMCModel as TorchModel  # noqa: E402
@@ -227,3 +230,59 @@ def test_util_is_a_copy():
     for x, y in zip(tutil.exp_piecewise_to_stepwise(h["a"], h["b"], h["s"]),
                     jutil.exp_piecewise_to_stepwise(h["a"], h["b"], h["s"])):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_synth_contig_is_a_copy_of_bench(seed):
+    "The port's synth_contig draws bench.py's rows from the same generator."
+    import bench
+
+    got = tsynth(np.random.default_rng(seed), 300_000, 128, 3)
+    want = bench.synth_contig(np.random.default_rng(seed), 300_000, 128, 3)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert int(got[:, 0].sum()) == 300_000
+
+
+# (S, n_keys, M): a single segment, S not a multiple of the warps per block,
+# the C3 and posterior shapes, and key tables whose partials pass the budget
+DSC_PLANS = [(1, 89, 2), (13, 89, 16), (6732, 128, 16), (6104, 63, 32),
+             (7814, 26, 15), (6104, 2000, 32), (20000, 30000, 32)]
+
+
+@pytest.mark.parametrize("S,n_keys,M", DSC_PLANS)
+def test_dsc_plan_covers_segments_within_the_budget(S, n_keys, M):
+    """K2's grid depends on (S, n_keys, M) only: not on L, not on the card
+    (dsc_plan is a pure function of its arguments).  Every segment has a
+    warp, no block is empty, the f64 gsum partials stay within
+    GSUM_PART_BYTES, and a warp walks more than one segment only where the
+    budget forces it."""
+    plans = {twk.dsc_plan(S, L, n_keys, M) for L in (8, 200, 1024)}
+    assert len(plans) == 1
+    W, R, G = plans.pop()
+    assert W == twk.DSC_WARPS and R >= 1
+    assert (G - 1) * W * R < S <= G * W * R
+    part = 8 * n_keys * M
+    assert G * part <= max(twk.GSUM_PART_BYTES, part)
+    if R > 1:
+        assert -(-S // (W * (R - 1))) * part > twk.GSUM_PART_BYTES
+
+
+def test_dsc_plan_budget_binds_for_large_key_tables():
+    # 2000 keys x 32 states: 512 KB of partials per block, 512 blocks at most
+    W, R, G = twk.dsc_plan(6104, 16384, 2000, 32)
+    assert (W, R) == (8, 2) and G == 382
+    assert twk.dsc_plan(6104, 16384, 63, 32) == (8, 1, 763)
+
+
+def test_dsc_plan_fixed_point_headroom():
+    """A block's 64-bit fixed-point gsum entry stays below (segments per
+    block) x L x 2^GSUM_FRAC_BITS; the plan raises before that can reach
+    2^62."""
+    assert twk.GSUM_FRAC_BITS == 40
+    twk.dsc_plan(8, 2**19 - 1, 63, 32)  # 8 segments per block, L < 2^19
+    with pytest.raises(ValueError, match="fixed-point"):
+        twk.dsc_plan(8, 2**19, 63, 32)
+    # a key table so large that each warp walks many segments
+    with pytest.raises(ValueError, match="fixed-point"):
+        twk.dsc_plan(20000, 16384, 30000, 32)
