@@ -12,40 +12,44 @@ Phases, in order; any failure ends the script with a non-zero exit:
    dsc_sweep and K3 segment_ops at S=64, L=512, M=15, 16 and 17, 89 keys,
    f32 at 'highest' and 'default'; K2g dsc_sweep_gamma, K4 viterbi_ops and K5
    viterbi_paths at S=64, L=512, M=2, 15, 16, 17 and 32, 89 keys; all six at
-   M=32 with 1000 keys (emission tables past a block's shared memory);
+   M=32 with 1000 keys (emission tables past a block's shared memory); K6
+   boundary_scan and K7 viterbi_boundary on those K3 and K4 operators, laid
+   out as three contigs of uneven length, at M=2, 15, 16, 17 and 32;
 4. the main path: simulate 2 contigs x 100 Mbp with n=20 (port's
    data/simulate.py, seeded), then ``smcpp_tpu_torch.commands.main estimate
    --em-iterations 2 --device cuda`` at the default knots, spline and w;
    checks model.final.json and that every E-step kernel was launched; then
-   each of K1-K3 against its plain version again, at both rungs, on the
-   fitted manager's own inputs (its packed windows, f32 T and E and the
-   boundary vectors they give: the shape, M and key count the fit launched
-   the kernels at), with kernel and plain times;
+   each of K1-K3 and K6 against its plain version again, at both rungs, on
+   the fitted manager's own inputs (its packed windows, f32 T and E, the
+   segment operators and boundary vectors they give: the shape, M and key
+   count the fit launched the kernels at), with kernel and plain times;
 5. the posterior path: ``smcpp_tpu_torch.commands.main posterior --device
    cuda --map --intervals 0.025,0.5,0.975`` with phase 4's model on the
    first 100 Mbp contig (M=32, every base a window); checks the npz (gammas,
    sites, MAP states, quantiles), that every posterior kernel was launched
-   (K3, K1, K2 in the E-step; K3, K1, K2g in the decode; K4, K5), then times
-   the decode's and the Viterbi's phases with CUDA events, and holds each
-   of the six kernels against its plain version on the posterior manager's
+   (K3, K6, K1, K2 in the E-step; K3, K6, K1, K2g in the decode; K4, K7,
+   K5), then times the decode's and the Viterbi's phases with CUDA events,
+   holds K6 and K7 against their plain versions on the whole contig's
+   operators, and each of the six window kernels on the posterior manager's
    own inputs, restricted to its first 32 segments;
 6. ``estep_direct`` alone at the bench.py C3 shape (22 x 2.5e6 windows,
    M=16, 128 keys, drawn by the port's copy of bench.py's ``synth_contig``;
-   median of 3 runs), in Gbp/s, then the SM clock under load.
+   median of 3 runs), in Gbp/s, with K6 against its plain version on its
+   operators, then the SM clock under load.
 
 Every kernel time is printed beside its bound: the least time the card
 could take for the same work on the same inputs, the larger of its
 operations over the peak rate of their type and the bytes it must move
 (each input read once, each output written once) over the memory rate
-(``bound``).  No single PyTorch call computes any of these kernels (each is
-a serial scan with a renormalisation at every step), so ``library_ms`` is
-null.
+(``bound``, ``scan_bound``).  No single PyTorch call computes any of these
+kernels (each is a serial scan with a renormalisation at every step), so
+``library_ms`` is null.
 
 The line before the last is the kernels' JSON record (launches from each
-kernel's own path: K1-K3 from phase 4's estimate, K2g, K4 and K5 from phase
-5's posterior; errors, times and bounds from the comparison on that path's
-own inputs); the last line is ``{"ok": true, "device": {...}}``.  Exits
-non-zero without a result when no CUDA device is present.
+kernel's own path: K1-K3 and K6 from phase 4's estimate, K2g, K4, K5 and K7
+from phase 5's posterior; errors, times and bounds from the comparison on
+that path's own inputs); the last line is ``{"ok": true, "device": {...}}``.
+Exits non-zero without a result when no CUDA device is present.
 """
 
 import json
@@ -129,9 +133,37 @@ def bound(name, E, keys, valid, elt=4):
         f32, b = 3 * nv * M * M, b + 4 * W + 8 * S
     else:
         raise ValueError(name)
+    return _roofline(f32, f64, b)
+
+
+def _roofline(f32, f64, b):
     t_ops = max(f32 / F32_OPS_PER_S, f64 / F64_OPS_PER_S)
     t_bytes = b / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def scan_bound(name, M, S, soc):
+    """(bound_ms, bound_by) of one launch of a per-contig boundary scan over
+    the (S, M, M) segment operators laid out by ``soc`` (C, NS): n listed
+    segments, each operator read once; padded slots are the identity and
+    cost nothing.
+
+      K6 boundary_scan     2 n M^2 FMA (forward and backward matvecs); ops,
+                           logs, pi and soc in, A_in and Q_end (S, M) f32
+                           and ll out
+      K7 viterbi_boundary  2 n M^2 add and max; ops, log pi and soc in,
+                           (S,) int32 entry and exit states out
+    """
+    soc = np.asarray(soc)
+    n = int((soc >= 0).sum())
+    b = 4 * n * M * M + 4 * M + 4 * soc.size
+    if name == "boundary_scan":
+        b += 4 * n + 8 * S * M + 8 * soc.shape[0]
+    elif name == "viterbi_boundary":
+        b += 8 * S
+    else:
+        raise ValueError(name)
+    return _roofline(2 * n * M * M, 0, b)
 
 
 def build():
@@ -244,7 +276,7 @@ def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
 
 
 def check_equal(name, got, want):
-    "K4 and K5 are exact (adds and maxima): the kernel must equal the plain."
+    "K4, K5 and K7 are exact (adds and maxima): the kernel must equal the plain."
     import torch
 
     if got.shape != want.shape or not torch.equal(got, want):
@@ -293,6 +325,54 @@ def compare_decode(tag, T, E, keys, valid, A_in, Q_end, entry, exit_, reps):
     return rec
 
 
+def compare_boundary(tag, pi, ops, logs, soc, seg_has, W, reps):
+    """K6 against contig_boundaries_plain on the operators ``ops``, ``logs``
+    and K7 against viterbi_boundary_states_plain on ``W`` (skipped when W is
+    None), with the contig layout ``soc``; raises on a miss.  Returns
+    ({kernel name: (max abs err, kernel ms, plain ms, bound ms, bound by)},
+    the plain outputs (ll, A_in, Q_end, cvalid) and (entry, exit) or
+    None)."""
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    S, M = ops.shape[0], ops.shape[-1]
+    ll, A_in, Q_end, cvalid = wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has)
+    plain = wk.contig_boundaries_plain(pi, ops, logs, soc, seg_has)
+    e6 = max(check_close(f"boundary_scan [{tag}] A_in", A_in, plain[1],
+                         HIGHEST_RTOL, 1e-7),
+             check_close(f"boundary_scan [{tag}] Q_end", Q_end, plain[2],
+                         HIGHEST_RTOL, 1e-7))
+    check_close(f"boundary_scan [{tag}] ll", ll.reshape(1), plain[0].reshape(1),
+                1e-6, 0.0)
+    check_equal(f"boundary_scan [{tag}] cvalid", cvalid, plain[3])
+    t6 = cuda_ms(lambda: wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has), reps)
+    t6p = cuda_ms(lambda: wk.contig_boundaries_plain(pi, ops, logs, soc, seg_has), 1)
+    rec = {"boundary_scan": (e6, t6, t6p, *scan_bound("boundary_scan", M, S, soc))}
+    states = None
+    if W is not None:
+        got = wk.viterbi_boundary_cuda(pi, W, soc)
+        states = wk.viterbi_boundary_states_plain(pi, W, soc)
+        e7 = max(check_equal(f"viterbi_boundary [{tag}] entry", got[0], states[0]),
+                 check_equal(f"viterbi_boundary [{tag}] exit", got[1], states[1]))
+        t7 = cuda_ms(lambda: wk.viterbi_boundary_cuda(pi, W, soc), reps)
+        t7p = cuda_ms(lambda: wk.viterbi_boundary_states_plain(pi, W, soc), 1)
+        rec["viterbi_boundary"] = (e7, t7, t7p,
+                                   *scan_bound("viterbi_boundary", M, S, soc))
+    log(f"[{tag}] C x NS = {np.asarray(soc).shape} ms kernel/plain/bound: "
+        + " ".join(f"{n} {r[1]:.3f}/{r[2]:.1f}/{r[3]:.4f}" for n, r in rec.items())
+        + f"; max abs err {e6:.2e}")
+    return rec, plain, states
+
+
+def uneven_contigs(S, C=3):
+    "seg_of_contig for S segments over C contigs of uneven length, tail-padded."
+    cuts = np.concatenate([[0], np.sort(np.random.RandomState(SEED).choice(
+        np.arange(1, S), C - 1, replace=False)), [S]])
+    soc = np.full((C, np.diff(cuts).max()), -1, np.int64)
+    for c in range(C):
+        soc[c, : cuts[c + 1] - cuts[c]] = np.arange(cuts[c], cuts[c + 1])
+    return soc
+
+
 def states(seed, S, M):
     import torch
 
@@ -305,8 +385,11 @@ def states(seed, S, M):
 
 def compare_small():
     """Every kernel against its plain version on synthetic inputs: K1-K3 at
-    both rungs, K2g, K4 and K5 at f32 carries, and all six with a key table
-    past a block's shared memory."""
+    both rungs, K2g, K4 and K5 at f32 carries, K6 and K7 on K3's and K4's
+    operators over uneven contigs, and the six window kernels with a key
+    table past a block's shared memory."""
+    import torch
+
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     for S, L, M, nk in [(64, 512, 15, 89), (64, 512, 16, 89), (64, 512, 17, 89)]:
@@ -320,6 +403,11 @@ def compare_small():
         T, E, keys, valid, A_in, Q_end = problem(SEED, S, L, M, nk)
         compare_decode(f"small S={S} L={L} M={M} keys={nk}", T, E, keys, valid,
                        A_in, Q_end, *states(SEED, S, M), 3)
+        ops, logs = wk.segment_ops_cuda(T, E, keys, valid, "highest")
+        pi = A_in[0] / A_in[0].sum()
+        pi[1] = 0.0  # a state no MAP path may start in
+        compare_boundary(f"small S={S} M={M}", pi, ops, logs, uneven_contigs(S),
+                         torch.any(valid, 1), wk.viterbi_ops_cuda(T, E, keys, valid), 3)
     S, L, M, nk = 64, 512, 32, 1000
     T, E, keys, valid, A_in, Q_end = problem(SEED, S, L, M, nk)
     for prec in ("highest", "default"):
@@ -331,11 +419,11 @@ def compare_small():
 
 
 def compare_main_path(im):
-    """Every kernel against its plain version on the fitted manager's own
-    inputs: its packed window keys and valid mask, its f32 T and E, and the
-    boundary vectors contig_boundaries gives them.  Both rungs; returns the
-    records at the rung the fit ended on ('tensorfloat32' stores what
-    'highest' stores)."""
+    """Every E-step kernel against its plain version on the fitted manager's
+    own inputs: its packed window keys and valid mask, its f32 T and E, the
+    segment operators and the boundary vectors contig_boundaries gives them.
+    Both rungs; returns the records at the rung the fit ended on
+    ('tensorfloat32' stores what 'highest' stores)."""
     import torch
 
     from smcpp_tpu_torch.ops import window_kernel as wk
@@ -346,12 +434,13 @@ def compare_main_path(im):
     fit_rung = "default" if im.precision == "default" else "highest"
     records = {}
     for prec in ("highest", "default"):
+        tag = f"main path S={S} L={L} M={T.shape[0]} keys={E.shape[0]} {prec}"
         ops, logs = wk.segment_ops_plain(T, E, keys, valid, prec)
-        _, A_in, Q_end, _ = wk.contig_boundaries(pi, ops, logs, soc,
-                                                 torch.any(valid, 1))
-        rec = compare(
-            f"main path S={S} L={L} M={T.shape[0]} keys={E.shape[0]} {prec}",
-            T, E, keys, valid, A_in.contiguous(), Q_end.contiguous(), prec, 5)
+        rec6, (_, A_in, Q_end, _), _ = compare_boundary(
+            tag, pi, ops.contiguous(), logs, soc, torch.any(valid, 1), None, 5)
+        rec = compare(tag, T, E, keys, valid, A_in.contiguous(),
+                      Q_end.contiguous(), prec, 5)
+        rec.update(rec6)
         if prec == fit_rung:
             records = rec
     log(f"kernel comparisons (main path): all within tolerance; records at "
@@ -504,7 +593,7 @@ def posterior_breakdown(im, pi, T, E):
         yield "segment_ops (K3)"
         _, A_in, Q_end, _ = wk.contig_boundaries(pi, ops, logs, soc,
                                                  torch.any(valid, 1))
-        yield "contig_boundaries"
+        yield "contig_boundaries (K6)"
         alphas, _ = wk.asc_sweep_cuda(T, E, keys, valid, A_in.contiguous(), prec)
         yield "asc_sweep (K1)"
         *_, gam = wk.dsc_sweep_gamma_cuda(T, E, keys, valid, alphas,
@@ -518,7 +607,7 @@ def posterior_breakdown(im, pi, T, E):
         W = wk.viterbi_ops_cuda(T, E, keys, valid)
         yield "viterbi_ops (K4)"
         entry, exit_ = wk.viterbi_boundary_states(pi, W, soc)
-        yield "boundary states (phase B)"
+        yield "boundary states (K7)"
         path = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
         yield "viterbi_paths (K5)"
         path.reshape(-1)[ends]
@@ -527,21 +616,25 @@ def posterior_breakdown(im, pi, T, E):
     t = phase_times("decode", shape, decode)
     t.update(phase_times("Viterbi", shape, viterbi))
     elt = wk.carry_dtype(prec, torch.float32).itemsize
+    M, S = T.shape[0], keys.shape[0]
     log_bounds("posterior", t, {
         "segment_ops (K3)": bound("segment_ops", E, keys, valid),
+        "contig_boundaries (K6)": scan_bound("boundary_scan", M, S, soc),
         "asc_sweep (K1)": bound("asc_sweep", E, keys, valid, elt),
         "dsc_sweep_gamma (K2g)": bound("dsc_sweep_gamma", E, keys, valid, elt),
         "viterbi_ops (K4)": bound("viterbi_ops", E, keys, valid),
+        "boundary states (K7)": scan_bound("viterbi_boundary", M, S, soc),
         "viterbi_paths (K5)": bound("viterbi_paths", E, keys, valid),
     })
 
 
 def compare_posterior(im, pi, T, E, n_seg=32):
     """Every kernel against its plain version on the posterior manager's own
-    inputs: its packed windows, its f32 T and E, the boundary vectors and
-    boundary states that the whole contig gives them, all restricted to the
-    first ``n_seg`` segments (a plain loop over every segment would take
-    minutes).  Returns the records of all six kernels."""
+    inputs: K6 and K7 on the whole contig's segment operators (its packed
+    windows, f32 T and E); the six window kernels on the boundary vectors
+    and boundary states those give, restricted to the first ``n_seg``
+    segments (a plain loop over every window would take minutes).  Returns
+    the records of all eight kernels."""
     import torch
 
     from smcpp_tpu_torch.ops import window_kernel as wk
@@ -549,8 +642,9 @@ def compare_posterior(im, pi, T, E, n_seg=32):
     keys, valid, soc = im._wkeys, im._wvalid, im._soc
     prec = im._decode_precision()
     ops, logs = wk.segment_operators(T, E, keys, valid, prec)
-    _, A_in, Q_end, _ = wk.contig_boundaries(pi, ops, logs, soc, torch.any(valid, 1))
-    entry, exit_ = wk.viterbi_boundary_states(pi, wk.viterbi_ops_cuda(T, E, keys, valid), soc)
+    rec6, (_, A_in, Q_end, _), (entry, exit_) = compare_boundary(
+        f"posterior path, S = {keys.shape[0]}, M = {T.shape[0]}", pi, ops, logs,
+        soc, torch.any(valid, 1), wk.viterbi_ops_cuda(T, E, keys, valid), 5)
     del ops
     sl = slice(0, n_seg)
     k, v = keys[sl].contiguous(), valid[sl].contiguous()
@@ -560,6 +654,7 @@ def compare_posterior(im, pi, T, E, n_seg=32):
     rec = compare(tag, T, E, k, v, a, q, prec, 5)
     rec.update(compare_decode(tag, T, E, k, v, a, q, entry[sl].contiguous(),
                               exit_[sl].contiguous(), 5))
+    rec.update(rec6)
     log("kernel comparisons (posterior path): all within tolerance")
     return rec
 
@@ -594,7 +689,8 @@ def posterior_path(workdir, model_json, data):
         f"S x L = {(S, L)} ({S * L} windows), M = {M}, "
         f"{im.em_idx.n_keys} keys; kernel launches {launches}")
     want = {"segment_ops": 2, "asc_sweep": 2, "dsc_sweep": 1,
-            "dsc_sweep_gamma": 1, "viterbi_ops": 1, "viterbi_paths": 1}
+            "dsc_sweep_gamma": 1, "viterbi_ops": 1, "viterbi_paths": 1,
+            "boundary_scan": 2, "viterbi_boundary": 1}
     short = {n: launches[n] for n, c in want.items() if launches[n] < c}
     if short:
         raise AssertionError(f"posterior kernels launched too few times: {short}")
@@ -650,7 +746,7 @@ def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
         yield "segment_ops (K3)"
         ll, A_in, Q_end, cvalid = wk.contig_boundaries(
             pi, ops, logs, soc, torch.any(valid, 1))
-        yield "contig_boundaries"
+        yield "contig_boundaries (K6)"
         alphas, a_end = wk.asc_sweep_cuda(T, E, keys, valid, A_in.contiguous(),
                                           precision)
         yield "asc_sweep (K1)"
@@ -664,6 +760,8 @@ def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
     elt = wk.carry_dtype(precision, torch.float32).itemsize
     log_bounds(f"E-step [{label}]", t, {
         "segment_ops (K3)": bound("segment_ops", E, keys, valid),
+        "contig_boundaries (K6)": scan_bound("boundary_scan", T.shape[0],
+                                             keys.shape[0], soc),
         "asc_sweep (K1)": bound("asc_sweep", E, keys, valid, elt),
         "dsc_sweep (K2)": bound("dsc_sweep", E, keys, valid, elt),
     })
@@ -703,6 +801,9 @@ def c3_throughput():
         times.append(time.perf_counter() - t0)
     dt = float(np.median(times))
     estep_breakdown("C3", pi_d, T_d, E_d, kd, vd, soc)
+    ops, logs = wk.segment_operators(T_d, E_d, kd, vd)
+    compare_boundary("C3", pi_d, ops, logs, soc, torch.any(vd, 1), None, 5)
+    del ops
     log(f"C3 E-step: S x L = {keys.shape}, {dt * 1e3:.1f} ms (median of 3), "
         f"{C * WINDOWS * W / dt / 1e9:.2f} Gbp/s, peak mem "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -726,8 +827,10 @@ def main():
     c3_throughput()
     from smcpp_tpu_torch.ops import window_kernel as wk
 
-    # K1-K3 from the estimate path, K2g, K4 and K5 from the posterior path
-    for name in ("dsc_sweep_gamma", "viterbi_ops", "viterbi_paths"):
+    # K1-K3 and K6 from the estimate path, K2g, K4, K5 and K7 from the
+    # posterior path
+    for name in ("dsc_sweep_gamma", "viterbi_ops", "viterbi_paths",
+                 "viterbi_boundary"):
         launches[name] = post_launches[name]
         records[name] = post_records[name]
     kernels = []

@@ -109,6 +109,9 @@ def add_common_estimation_args(parser):
                            help="regularization penalty")
     optimizer.add_argument("--lambda", dest="lambda_", type=float,
                            help=argparse.SUPPRESS)
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler Chrome trace of the run "
+                             "here (trace.json)")
     add_hmm_args(parser)
 
 

@@ -1,6 +1,7 @@
 // Helpers shared by the window kernels (window_kernels.cu, dsc_kernels.cu,
-// viterbi_kernels.cu).  Each source is compiled by its own nvcc into its own
-// shared library with a plain C interface (smcpp_tpu_torch/ops/_cuda.py).
+// viterbi_kernels.cu, boundary_kernels.cu).  Each source is compiled by its
+// own nvcc into its own shared library with a plain C interface
+// (smcpp_tpu_torch/ops/_cuda.py).
 //
 // Emission tables: every kernel keeps its emission table in shared memory
 // when the table fits one block (SMEM_MAX), and otherwise reads rows from
@@ -70,6 +71,27 @@ __device__ __forceinline__ float table(const float* t, int idx) {
   } else {
     return __ldg(t + idx);
   }
+}
+
+// Asynchronous copies from global to shared memory (cp.async): 16 or 4
+// bytes per lane and instruction, grouped by commit and awaited by group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <typename K>

@@ -211,7 +211,12 @@ class OnePopInferenceManager:
     def _hbm_budget(self, frac=0.375):
         """Per-device byte budget for window-state streams: ``frac`` of the
         card's memory as torch.cuda.mem_get_info reports it (6 GB on the
-        CPU, as in the reference)."""
+        CPU, as in the reference).  SMCPP_TPU_ESTREAM_BYTES overrides it with
+        an absolute budget that every gate and every ``frac`` compares
+        against (manager.py:_hbm_budget)."""
+        v = os.environ.get("SMCPP_TPU_ESTREAM_BYTES")
+        if v is not None:
+            return float(v)
         if self._device.type != "cuda":
             return 6e9
         _free, total = torch.cuda.mem_get_info(self._device)

@@ -48,6 +48,10 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
         ],
     },
+    "boundary_kernels.cu": {
+        "smcpp_boundary_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "smcpp_viterbi_boundary": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    },
 }
 
 

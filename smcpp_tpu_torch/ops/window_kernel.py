@@ -10,7 +10,8 @@ decompressed to unit windows and cut into S segments of L windows
   pass 1   ``segment_operators``: per-segment transfer operators, one
            X <- diag(e) T^T X step per window (kernel K3);
            ``contig_boundaries``: tiny per-contig scans over the (S, M, M)
-           operators give each segment's boundary alpha / beta vectors;
+           operators give each segment's boundary alpha / beta vectors
+           (K6);
   pass 2   ``stats_pass``: an ascending alpha sweep storing the per-window
            alpha stream (K1), then a descending beta sweep reading it and
            accumulating xisum and the per-key posterior masses (K2), or,
@@ -19,14 +20,16 @@ decompressed to unit windows and cut into S segments of L windows
            contig boundaries.
 
 The Viterbi is the same two-level scheme in max-plus: per-segment max-plus
-operators (K4), a per-contig scan over them for the boundary states, then
-each segment's interior path from its entry state (K5).
+operators (K4), a per-contig scan over them for the boundary states and its
+backtrace (K7), then each segment's interior path from its entry state
+(K5).
 
-Each of K1-K5 is a serial loop over the windows of a segment.  On a CUDA
-tensor they run as the hand-written kernels in csrc/*.cu; on a CPU tensor
-they run as the plain PyTorch loops in this module (the same arithmetic,
-f32 or f64).  A CUDA tensor never falls back to the plain version: the
-wrapper launches its kernel or raises.  The plain versions are also what
+Each of K1-K5 is a serial loop over the windows of a segment, and K6 and K7
+serial loops over the segments of a contig.  On a CUDA tensor they run as
+the hand-written kernels in csrc/*.cu; on a CPU tensor they run as the
+plain PyTorch loops in this module (the same arithmetic, f32 or f64).  A
+CUDA tensor never falls back to the plain version: the wrapper launches its
+kernel or raises.  The plain versions are also what
 the kernels are held against on the card.
 
 Numerics (identical to the reference): f32 arithmetic with exact f32
@@ -34,7 +37,14 @@ products at every precision rung; at 'default' the K3 carry is stored in
 bf16 after every step and every block rescale, and the alpha stream is
 stored in bf16 (``carry_dtype``); at 'tensorfloat32' and 'highest' both are
 f32.  Every normalizer is window-local, so scale factors cancel exactly.
+
+Environment (read once, at import, as the reference reads them):
+SMCPP_TPU_MATMUL_PRECISION sets the default rung (``MATMUL_PRECISION``,
+'default'); SMCPP_TPU_CARRY pins the carry storage (``CARRY``: 'auto' ties
+it to the rung, 'float32' or 'bfloat16' pins it).
 """
+
+import os
 
 import numpy as np
 import torch
@@ -43,7 +53,9 @@ from . import _cuda
 
 RESCALE_EVERY = 8
 FLOOR = 1e-35
-MATMUL_PRECISION = "default"
+MATMUL_PRECISION = os.environ.get("SMCPP_TPU_MATMUL_PRECISION", "default")
+CARRY = os.environ.get("SMCPP_TPU_CARRY", "auto")
+_CARRY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # The descending sweep (K2, K2g): warps per block, one segment each.  The
 # partition of segments into blocks, and so the order in which the f64
@@ -62,13 +74,18 @@ GSUM_FRAC_BITS = 40
 
 def carry_dtype(precision, base_dtype):
     """Storage dtype of the K3 carry and of the alpha stream
-    (window_kernel.py:_carry_dtype): bf16 at the 'default'/'bfloat16' rung
-    for f32 E-steps, the compute dtype otherwise."""
+    (window_kernel.py:_carry_dtype): for f32 E-steps, ``CARRY`` when it pins
+    one, else bf16 at the 'default'/'bfloat16' rung and f32 above it; the
+    compute dtype for f64 E-steps.  The kernels store f32 or bf16 only."""
     if base_dtype != torch.float32:
         return base_dtype
-    if precision in ("default", "bfloat16"):
-        return torch.bfloat16
-    return base_dtype
+    if CARRY == "auto":
+        return torch.bfloat16 if precision in ("default", "bfloat16") else base_dtype
+    if CARRY not in _CARRY_DTYPES:
+        raise ValueError(
+            f"SMCPP_TPU_CARRY must be 'auto', 'float32' or 'bfloat16' (got {CARRY!r})"
+        )
+    return _CARRY_DTYPES[CARRY]
 
 
 def _precision(precision):
@@ -123,8 +140,18 @@ VITERBI_PATHS = _Kernel(
     "viterbi_paths", "smcpp_tpu_torch/csrc/viterbi_kernels.cu",
     "smcpp_tpu/ops/window_kernel.py:871",
 )
-ESTEP_KERNELS = (SEGMENT_OPS, ASC_SWEEP, DSC_SWEEP)
-KERNELS = ESTEP_KERNELS + (DSC_SWEEP_GAMMA, VITERBI_OPS, VITERBI_PATHS)
+BOUNDARY_SCAN = _Kernel(
+    "boundary_scan", "smcpp_tpu_torch/csrc/boundary_kernels.cu",
+    "smcpp_tpu/ops/window_kernel.py:358",
+)
+VITERBI_BOUNDARY = _Kernel(
+    "viterbi_boundary", "smcpp_tpu_torch/csrc/boundary_kernels.cu",
+    "smcpp_tpu/ops/window_kernel.py:815",
+)
+ESTEP_KERNELS = (SEGMENT_OPS, ASC_SWEEP, DSC_SWEEP, BOUNDARY_SCAN)
+KERNELS = ESTEP_KERNELS + (
+    DSC_SWEEP_GAMMA, VITERBI_OPS, VITERBI_PATHS, VITERBI_BOUNDARY,
+)
 
 
 def check_key_range(keys, n_keys):
@@ -390,6 +417,96 @@ def viterbi_paths_cuda(T, E, keys, valid, seg_entry, seg_exit):
     return path
 
 
+def _check_boundary_inputs(ops, seg_of_contig):
+    """Validate the segment operators and the contig table the per-contig
+    scans (K6, K7) take; returns (soc (C, NS) int32 on ops's device, M)."""
+    if ops.dtype != torch.float32:
+        raise TypeError(f"the boundary kernels take float32 operators (got {ops.dtype})")
+    S, M = ops.shape[0], ops.shape[-1]
+    if ops.dim() != 3 or ops.shape != (S, M, M) or not 2 <= M <= 32:
+        raise ValueError(
+            f"operators must be (S, M, M) with 2 <= M <= 32, got {tuple(ops.shape)}"
+        )
+    if not ops.is_contiguous():
+        raise ValueError("kernel inputs must be contiguous")
+    socn = np.asarray(seg_of_contig)
+    if socn.ndim != 2 or socn.size == 0 or int(socn.max()) >= S:
+        raise ValueError(f"seg_of_contig must be (C, NS) segment ids below {S}")
+    return torch.as_tensor(socn.astype(np.int32), device=ops.device), M
+
+
+def boundary_scan_cuda(pi, ops, logs, seg_of_contig, seg_has):
+    """K6 (replaces window_kernel.py:contig_boundaries).
+
+    What bounds it: serial depth, NS dependent steps per contig and
+    direction, each an M x M matvec behind one warp reduction; the work (2 S
+    M^2 FMAs, one read of the operators) is tiny.  Design
+    (csrc/boundary_kernels.cu): one warp per (contig, direction), both
+    directions at once; lane i owns state i; the next segment's operator is
+    copied with cp.async into a per-warp double buffer in shared memory
+    (odd row stride, so the forward's row reads and the backward's column
+    reads are free of bank conflicts) while the current one runs; alpha or
+    q is broadcast by shuffle; the sum and the max are butterflies; each
+    contig's log-likelihood is summed in f64 in lane 0, in segment order.
+    cvalid is computed here with vectorized torch ops.  Returns the plain
+    version's (ll f64 scalar, A_in (S, M), Q_end (S, M), cvalid (C,))."""
+    soc, M = _check_boundary_inputs(ops, seg_of_contig)
+    C, NS = soc.shape
+    S = ops.shape[0]
+    dev = ops.device
+    if logs.dtype != torch.float32 or tuple(logs.shape) != (S,):
+        raise ValueError(f"logs must be float32 ({S},)")
+    cvalid = torch.any(seg_has[soc.clamp(min=0).long()] & (soc >= 0), 1)
+    pi32 = pi.to(device=dev, dtype=torch.float32).contiguous()
+    ll = torch.empty((C,), dtype=torch.float64, device=dev)
+    A_in = torch.zeros((S, M), dtype=torch.float32, device=dev)
+    Q_end = torch.zeros((S, M), dtype=torch.float32, device=dev)
+    lib = _cuda.lib()
+    BOUNDARY_SCAN.launches += 1
+    _cuda.check(
+        lib.smcpp_boundary_scan(
+            ops.data_ptr(), logs.contiguous().data_ptr(), pi32.data_ptr(),
+            soc.data_ptr(), cvalid.data_ptr(), C, NS, M, ll.data_ptr(),
+            A_in.data_ptr(), Q_end.data_ptr(), _stream(dev),
+        ),
+        BOUNDARY_SCAN.name,
+    )
+    return torch.sum(ll), A_in, Q_end, cvalid
+
+
+def viterbi_boundary_cuda(pi, Wops, seg_of_contig):
+    """K7 (replaces window_kernel.py:viterbi_boundary_states).
+
+    What bounds it: serial depth, NS dependent max-plus steps per contig and
+    then a backtrace of NS dependent steps.  Design: K6's forward in
+    max-plus, one warp per contig, lane i owns V[i] and reads row i of the
+    staged operator; the backpointer is the first maximizing entry state
+    (torch.max's and jnp.argmax's tie rule), stored in a (C, NS, M) int8
+    device scratch.  The warp then walks it back from the first argmax of
+    the final V, loading eight rows at once and following the state by
+    shuffle, and writes each listed segment's entry and exit state.  Exact:
+    adds and maxima only, so it equals the plain version bit for bit.  No
+    host copy.  Returns (seg_entry (S,), seg_exit (S,)) int32."""
+    soc, M = _check_boundary_inputs(Wops, seg_of_contig)
+    C, NS = soc.shape
+    S = Wops.shape[0]
+    dev = Wops.device
+    logpi = _log_pi(pi.to(dev), Wops.dtype).contiguous()
+    bp = torch.empty((C, NS, M), dtype=torch.int8, device=dev)
+    seg_entry = torch.zeros((S,), dtype=torch.int32, device=dev)
+    seg_exit = torch.zeros((S,), dtype=torch.int32, device=dev)
+    lib = _cuda.lib()
+    VITERBI_BOUNDARY.launches += 1
+    _cuda.check(
+        lib.smcpp_viterbi_boundary(
+            Wops.data_ptr(), logpi.data_ptr(), soc.data_ptr(), C, NS, M,
+            bp.data_ptr(), seg_entry.data_ptr(), seg_exit.data_ptr(), _stream(dev),
+        ),
+        VITERBI_BOUNDARY.name,
+    )
+    return seg_entry, seg_exit
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path and the kernels' reference)
 # ---------------------------------------------------------------------------
@@ -591,8 +708,16 @@ def contig_boundaries(pi, ops, logs, seg_of_contig, seg_has):
     A_in (S, M), Q_end (S, M), cvalid (C,)): A_in[s] is the normalized
     forward vector at the start of segment s (pi for a contig's first
     segment), Q_end[s] the normalized backward vector at its end (ones for a
-    contig's last).  Plain torch on every device: a loop over the (short)
-    segment axis of each contig."""
+    contig's last); segments no contig lists hold zeros.  K6 on CUDA
+    tensors."""
+    if ops.is_cuda:
+        return boundary_scan_cuda(pi, ops, logs, seg_of_contig, seg_has)
+    return contig_boundaries_plain(pi, ops, logs, seg_of_contig, seg_has)
+
+
+def contig_boundaries_plain(pi, ops, logs, seg_of_contig, seg_has):
+    """contig_boundaries as plain torch: a loop over the segment axis of
+    each contig, batched over contigs, forward then backward."""
     socn = np.asarray(seg_of_contig)
     C, NS = socn.shape
     S, M = ops.shape[0], ops.shape[-1]
@@ -780,10 +905,26 @@ def viterbi_segment_ops(T, E, keys, valid):
 def viterbi_boundary_states(pi, Wops, seg_of_contig):
     """Phase B: the MAP state at every segment boundary, by a per-contig
     max-plus scan over the segment operators and its backtrace
-    (window_kernel.py:viterbi_boundary_states).  Plain torch on every
-    device: a loop over the segments of each contig, batched over contigs;
-    the backtrace runs on the host copy of the (NS, C, M) backpointers.
-    Returns (seg_entry (S,), seg_exit (S,)) int32 on Wops's device."""
+    (window_kernel.py:viterbi_boundary_states).  Returns (seg_entry (S,),
+    seg_exit (S,)) int32 on Wops's device; segments no contig lists hold 0.
+    K7 on CUDA tensors."""
+    if Wops.is_cuda:
+        return viterbi_boundary_cuda(pi, Wops, seg_of_contig)
+    return viterbi_boundary_states_plain(pi, Wops, seg_of_contig)
+
+
+def _log_pi(pi, dt):
+    """log pi in ``dt``.  A pi == 0 state carries the max-plus 'impossible'
+    score, not log(tiny): per-segment operator spreads exceed that."""
+    return torch.where(
+        pi > 0, torch.log(torch.clamp(pi, min=1e-300)), _mp_neg(pi.dtype, pi.device)
+    ).to(dt)
+
+
+def viterbi_boundary_states_plain(pi, Wops, seg_of_contig):
+    """viterbi_boundary_states as plain torch: a loop over the segments of
+    each contig, batched over contigs; the backtrace runs on the host copy
+    of the (NS, C, M) backpointers."""
     socn = np.asarray(seg_of_contig)
     C, NS = socn.shape
     S, M, _ = Wops.shape
@@ -793,11 +934,7 @@ def viterbi_boundary_states(pi, Wops, seg_of_contig):
     pad = torch.as_tensor(socn < 0, device=dev)
     idx = torch.as_tensor(np.maximum(socn, 0), device=dev)
     ops_c = torch.where(pad[:, :, None, None], eyemp, Wops[idx])  # (C, NS, i, k)
-    # a pi == 0 state carries the max-plus 'impossible' score, not log(tiny)
-    logpi = torch.where(
-        pi > 0, torch.log(torch.clamp(pi, min=1e-300)), _mp_neg(pi.dtype, dev)
-    ).to(dt)
-    V = logpi.expand(C, M)
+    V = _log_pi(pi, dt).expand(C, M)
     bps = []
     for t in range(NS):
         sc = ops_c[:, t] + V[:, None, :]  # (C, i, k)
@@ -840,7 +977,7 @@ def viterbi_segment_paths(T, E, keys, valid, seg_entry, seg_exit, block=None):
 
 def viterbi_windows(pi, T, E, keys, valid, seg_of_contig, row_ends, block=None):
     """MAP (Viterbi) decode through the window kernels
-    (window_kernel.py:viterbi_windows): phase A (K4), phase B, phase C
+    (window_kernel.py:viterbi_windows): phase A (K4), phase B (K7), phase C
     (K5), then the state at each row's last window.  Returns (n_rows,)
     int32."""
     Wops = viterbi_segment_ops(T, E, keys, valid)

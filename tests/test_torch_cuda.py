@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 asc_sweep, K2 dsc_sweep, K2g dsc_sweep_gamma,
-K3 segment_ops, K4 viterbi_ops, K5 viterbi_paths) against their plain
-PyTorch versions, on the card.
+K3 segment_ops, K4 viterbi_ops, K5 viterbi_paths, K6 boundary_scan, K7
+viterbi_boundary) against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  On the GPU
 machine run them without the JAX-side conftest:
@@ -16,9 +16,12 @@ at the same points on both sides, but an ulp-level f32 difference can flip
 a bf16 rounding: a stored bf16 value may differ by one bf16 ulp (at most
 2^-7 relative), and quantities computed from such carries are held at
 rtol 1e-3.  K4 and K5 add and take maxima only, which round alike in any
-order: they must equal their plain versions exactly.  K2 and K2g sum their
-partials in an order fixed by (S, n_keys, M) (gsum in 64-bit fixed point,
-xisum in warp order), so two launches must agree bit for bit.
+order: they must equal their plain versions exactly, and so must K7.  K2
+and K2g sum their partials in an order fixed by (S, n_keys, M) (gsum in
+64-bit fixed point, xisum in warp order), so two launches must agree bit
+for bit.  K6 is an f32 recursion in another summation order: rtol 1e-5 /
+atol 1e-7 on the boundary vectors (normalized to a sum or a maximum of 1),
+rtol 1e-6 on the f64 log-likelihood.
 """
 
 import numpy as np
@@ -386,3 +389,134 @@ def test_dsc_sweep_invalid_runs_across_chunks(dev, M):
     valid[5] = False
     valid[6, :100] = False
     _check_dsc(T, E, keys, valid, A_in, Q_end, prec)
+
+
+# --- K6 / K7: the per-contig boundary scans (csrc/boundary_kernels.cu) -----
+
+BOUNDARY_CASES = ["uneven", "no_valid", "unlisted", "one_contig"]
+
+
+def _boundary_case(case, S, seed):
+    """seg_of_contig (C, NS) and a mask on seg_has for S segments: 'uneven'
+    three contigs of uneven length with tail padding; 'no_valid' the same
+    with every segment of the middle contig empty; 'unlisted' two contigs
+    that leave four segments unlisted; 'one_contig' C = 1."""
+    rng = np.random.RandomState(seed)
+    has = np.ones(S, bool)
+    if case == "one_contig":
+        return np.arange(S, dtype=np.int64)[None], has
+    if case == "unlisted":
+        listed = np.sort(rng.choice(S, S - 4, replace=False))
+        soc = np.full((2, S), -1, np.int64)
+        soc[0, :3] = listed[:3]
+        soc[1, : len(listed) - 3] = listed[3:]
+        return soc, has
+    cuts = np.linspace(0, S, 4).astype(int)
+    soc = np.full((3, np.diff(cuts).max()), -1, np.int64)
+    for c in range(3):
+        soc[c, : cuts[c + 1] - cuts[c]] = np.arange(cuts[c], cuts[c + 1])
+    if case == "no_valid":
+        has[soc[1][soc[1] >= 0]] = False
+    return soc, has
+
+
+def _boundary_inputs(seed, S, M, case, dev):
+    "K3's operators of a random E-step, pi, and a contig layout."
+    T, E, keys, valid, _, _ = _problem(seed, S, 64, M, 89, dev)
+    ops, logs = wk.segment_ops_cuda(T, E, keys, valid, "highest")
+    soc, has = _boundary_case(case, S, seed)
+    seg_has = torch.any(valid, 1) & torch.as_tensor(has, device=dev)
+    pi = torch.as_tensor(np.random.RandomState(seed).dirichlet(np.ones(M)),
+                         dtype=torch.float32, device=dev)
+    return pi, ops, logs, soc, seg_has
+
+
+def _check_boundary_scan(pi, ops, logs, soc, seg_has):
+    before = wk.BOUNDARY_SCAN.launches
+    ll, A_in, Q_end, cvalid = wk.contig_boundaries(pi, ops, logs, soc, seg_has)
+    torch.cuda.synchronize()
+    assert wk.BOUNDARY_SCAN.launches == before + 1
+    ll_p, A_p, Q_p, cv_p = wk.contig_boundaries_plain(pi, ops, logs, soc, seg_has)
+    torch.testing.assert_close(A_in, A_p, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(Q_end, Q_p, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(ll, ll_p, rtol=1e-6, atol=0.0)
+    assert ll.dtype == torch.float64 and torch.equal(cvalid, cv_p)
+    return ll, A_in, Q_end, cvalid
+
+
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+@pytest.mark.parametrize("M", MS)
+def test_boundary_scan_matches_plain(dev, M, case):
+    _, A_in, Q_end, cvalid = _check_boundary_scan(
+        *_boundary_inputs(30, 40, M, case, dev))
+    soc = _boundary_case(case, 40, 30)[0]
+    unlisted = np.setdiff1d(np.arange(40), soc[soc >= 0])
+    assert float(A_in[unlisted].abs().sum() + Q_end[unlisted].abs().sum()) == 0.0
+    if case == "no_valid":
+        assert cvalid.tolist() == [True, False, True]
+
+
+@pytest.mark.parametrize("M", [2, 16, 32])
+def test_boundary_scan_one_segment(dev, M):
+    "One contig of one segment: A_in is pi and Q_end is ones."
+    pi, ops, logs, soc, seg_has = _boundary_inputs(33, 1, M, "one_contig", dev)
+    _, A_in, Q_end, _ = _check_boundary_scan(pi, ops, logs, soc, seg_has)
+    assert torch.equal(A_in[0], pi) and torch.equal(Q_end[0], torch.ones_like(pi))
+
+
+def _viterbi_boundary_inputs(seed, S, M, ops_kind, dev):
+    """Max-plus operators: K4's on a random problem, or small integers with
+    5% 'impossible' (-1e30) entries, which force ties; pi has a zero."""
+    rng = np.random.RandomState(seed)
+    if ops_kind == "k4":
+        T, E, keys, valid, _, _ = _problem(seed, S, 64, M, 89, dev)
+        W = wk.viterbi_ops_cuda(T, E, keys, valid)
+    else:
+        W = rng.randint(-3, 1, (S, M, M)).astype(np.float32)
+        W[rng.rand(S, M, M) < 0.05] = -1e30
+        W = torch.as_tensor(W, device=dev)
+    pi = rng.dirichlet(np.ones(M))
+    pi[1] = 0.0
+    return torch.as_tensor(pi, dtype=torch.float32, device=dev), W
+
+
+@pytest.mark.parametrize("ops_kind", ["ties", "k4"])
+@pytest.mark.parametrize("case", ["uneven", "unlisted", "one_contig"])
+@pytest.mark.parametrize("M", MS)
+def test_viterbi_boundary_matches_plain(dev, M, case, ops_kind):
+    pi, W = _viterbi_boundary_inputs(34, 40, M, ops_kind, dev)
+    soc = _boundary_case(case, 40, 34)[0]
+    before = wk.VITERBI_BOUNDARY.launches
+    entry, exit_ = wk.viterbi_boundary_states(pi, W, soc)
+    torch.cuda.synchronize()
+    assert wk.VITERBI_BOUNDARY.launches == before + 1
+    entry_p, exit_p = wk.viterbi_boundary_states_plain(pi, W, soc)
+    assert entry.dtype == exit_.dtype == torch.int32
+    assert torch.equal(entry, entry_p) and torch.equal(exit_, exit_p)
+    assert not bool((entry[torch.as_tensor(soc[:, 0], device=dev)] == 1).any())
+
+
+def test_boundary_kernels_are_bitwise_repeatable(dev):
+    pi, ops, logs, soc, seg_has = _boundary_inputs(35, 70, 32, "uneven", dev)
+    a = wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has)
+    b = wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has)
+    pi, W = _viterbi_boundary_inputs(35, 70, 32, "ties", dev)
+    c = wk.viterbi_boundary_cuda(pi, W, soc)
+    d = wk.viterbi_boundary_cuda(pi, W, soc)
+    torch.cuda.synchronize()
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+
+
+def test_boundary_kernels_reject_what_they_do_not_take(dev):
+    pi, ops, logs, soc, seg_has = _boundary_inputs(36, 12, 16, "uneven", dev)
+    with pytest.raises(TypeError):
+        wk.contig_boundaries(pi, ops.double(), logs, soc, seg_has)
+    with pytest.raises(TypeError):
+        wk.viterbi_boundary_states(pi, ops.double(), soc)
+    big = torch.rand((12, 33, 33), device=dev)
+    with pytest.raises(ValueError, match="2 <= M <= 32"):
+        wk.contig_boundaries(torch.full((33,), 1 / 33, device=dev), big, logs,
+                             soc, seg_has)
+    with pytest.raises(ValueError, match="2 <= M <= 32"):
+        wk.viterbi_boundary_states(torch.full((33,), 1 / 33, device=dev), big, soc)

@@ -166,3 +166,21 @@ def test_cuda_requested_without_a_card_raises(smc_files, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         torch_analysis.Analysis(smc_files, _args(device="cuda"))
+
+
+def test_cli_estimate_profile_dir(smc_files, tmp_path):
+    """--profile-dir (the JAX CLI's flag) is accepted and writes a Chrome
+    trace of the run: torch.profiler's, not jax.profiler's."""
+    out, prof = tmp_path / "out", tmp_path / "prof"
+    torch_main.main([
+        "estimate", "--device", "cpu", "--em-iterations", "1",
+        "--profile-dir", str(prof), "-o", str(out), "1.25e-8", *smc_files,
+    ])
+    assert os.path.exists(out / "model.final.json")
+    path = prof / "trace.json"
+    assert path.stat().st_size > 0
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    assert any(e.get("ph") == "X" and e.get("name", "").startswith("aten::")
+               for e in events)

@@ -373,3 +373,65 @@ def test_cli_posterior_matches_jax(posterior_runs):
     q = zt[data + "_quantiles"]
     assert np.all(np.diff(q, axis=0) >= 0)
     np.testing.assert_allclose(q, zj[data + "_quantiles"], rtol=1e-4, atol=1e-6)
+
+
+# --- viterbi_boundary_states (K7's plain version) on edge shapes -----------
+
+def _soc_cases(case, S, rng):
+    """seg_of_contig for S segments: 'uneven' three contigs of uneven
+    length with tail padding; 'unlisted' two contigs that leave some
+    segments unlisted (their states stay 0); 'one_contig' C = 1."""
+    if case == "one_contig":
+        return np.arange(S, dtype=np.int64)[None]
+    if case == "unlisted":
+        listed = np.sort(rng.choice(S, S - 4, replace=False))
+        soc = np.full((2, S), -1, np.int64)
+        soc[0, :3] = listed[:3]
+        soc[1, : len(listed) - 3] = listed[3:]
+        return soc
+    cuts = np.linspace(0, S, 4).astype(int)
+    soc = np.full((3, np.diff(cuts).max()), -1, np.int64)
+    for c in range(3):
+        soc[c, : cuts[c + 1] - cuts[c]] = np.arange(cuts[c], cuts[c + 1])
+    return soc
+
+
+@pytest.mark.parametrize("case", ["uneven", "unlisted", "one_contig"])
+@pytest.mark.parametrize("M", [2, 32])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_viterbi_boundary_states_edge_shapes(case, M, dtype):
+    """Small-integer max-plus operators force ties (the first maximizing
+    state wins on both sides), a state with pi == 0 and -1e30 entries carry
+    the 'impossible' score."""
+    rng = np.random.RandomState(14)
+    S = 13
+    W = rng.randint(-3, 1, (S, M, M)).astype(dtype)
+    W[rng.rand(S, M, M) < 0.05] = -1e30
+    pi = rng.dirichlet(np.ones(M)).astype(dtype)
+    pi[1] = 0
+    soc = _soc_cases(case, S, rng)
+    ref = jwk.viterbi_boundary_states(jnp.asarray(pi), jnp.asarray(W), soc)
+    got = twk.viterbi_boundary_states_plain(torch.as_tensor(pi),
+                                            torch.as_tensor(W), soc)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and g.shape == (S,)
+        _agree(g.numpy(), r, dtype)
+    unlisted = np.setdiff1d(np.arange(S), soc[soc >= 0])
+    for g in got:
+        assert np.all(g.numpy()[unlisted] == 0)
+    assert np.all(got[0].numpy()[soc[:, 0]] != 1)  # no path starts at pi == 0
+
+
+def test_viterbi_boundary_states_dispatches_plain_on_cpu(monkeypatch):
+    def no_kernel(*a):
+        raise AssertionError("the CUDA wrapper ran on CPU tensors")
+
+    monkeypatch.setattr(twk, "viterbi_boundary_cuda", no_kernel)
+    pi, T, E, keys, valid, soc, _ = _vit_inputs(4, np.float32)
+    W = twk.viterbi_segment_ops(*map(torch.as_tensor, (T, E, keys, valid)))
+    before = twk.VITERBI_BOUNDARY.launches
+    got = twk.viterbi_boundary_states(torch.as_tensor(pi), W, soc)
+    want = twk.viterbi_boundary_states_plain(torch.as_tensor(pi), W, soc)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert twk.VITERBI_BOUNDARY.launches == before

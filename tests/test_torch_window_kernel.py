@@ -212,3 +212,80 @@ def test_carry_dtype_follows_the_ladder():
         assert np.dtype(jwk._carry_dtype(p, jnp.float32)).itemsize == (
             torch.finfo(twk.carry_dtype(p, torch.float32)).bits // 8
         )
+
+
+# --- contig_boundaries (K6's plain version) on edge shapes -----------------
+
+def _boundary_case(case, S, rng):
+    """seg_of_contig and seg_has for S segments: 'uneven' three contigs of
+    uneven length with tail padding; 'no_valid' the same with every segment
+    of the middle contig empty (cvalid false, no ll term); 'unlisted' two
+    contigs that leave some segments unlisted (their rows stay zero);
+    'one_contig' C = 1."""
+    seg_has = np.ones(S, bool)
+    if case == "one_contig":
+        return np.arange(S, dtype=np.int64)[None], seg_has
+    if case == "unlisted":
+        listed = np.sort(rng.choice(S, S - 4, replace=False))
+        soc = np.full((2, S), -1, np.int64)
+        soc[0, : 3] = listed[:3]
+        soc[1, : len(listed) - 3] = listed[3:]
+        return soc, seg_has
+    soc = _soc(S, 3)
+    if case == "no_valid":
+        seg_has[soc[1][soc[1] >= 0]] = False
+    return soc, seg_has
+
+
+def _boundary_ops(seed, S, M, dtype):
+    rng = np.random.RandomState(seed)
+    ops = rng.uniform(0.01, 1.0, (S, M, M)).astype(dtype)
+    logs = rng.uniform(-40.0, -1.0, S).astype(dtype)
+    pi = rng.dirichlet(np.ones(M)).astype(dtype)
+    return pi, ops, logs, rng
+
+
+BOUNDARY_CASES = ["uneven", "no_valid", "unlisted", "one_contig"]
+
+
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+@pytest.mark.parametrize("M", [2, 32])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_contig_boundaries_edge_shapes(case, M, dtype):
+    pi, ops, logs, rng = _boundary_ops(7, 13, M, dtype)
+    soc, seg_has = _boundary_case(case, 13, rng)
+    ref = jwk.contig_boundaries(jnp.asarray(pi), jnp.asarray(ops),
+                                jnp.asarray(logs), soc, jnp.asarray(seg_has))
+    got = twk.contig_boundaries_plain(*map(torch.as_tensor, (pi, ops, logs)),
+                                      soc, torch.as_tensor(seg_has))
+    rtol, atol = BOUNDS[("highest", dtype)]
+    for g, r in zip(got, ref):
+        _close(g, r, rtol, atol)
+    ll, A_in, Q_end, cvalid = got
+    assert ll.dtype == torch.float64 and A_in.shape == Q_end.shape == (13, M)
+    listed = np.unique(soc[soc >= 0])
+    unlisted = np.setdiff1d(np.arange(13), listed)
+    assert float(A_in[unlisted].abs().sum() + Q_end[unlisted].abs().sum()) == 0.0
+    if case == "no_valid":
+        assert cvalid.tolist() == [True, False, True]
+        # the empty contig adds no ll term: the other two alone give ll
+        keep = soc[[0, 2]]
+        ll2 = twk.contig_boundaries_plain(*map(torch.as_tensor, (pi, ops, logs)),
+                                          keep, torch.as_tensor(seg_has))[0]
+        assert float(ll) == float(ll2)
+
+
+def test_contig_boundaries_dispatches_plain_on_cpu(monkeypatch):
+    """A CPU tensor runs the plain loop; the kernel's wrapper is never
+    called (it would raise here: no card)."""
+    def no_kernel(*a):
+        raise AssertionError("the CUDA wrapper ran on CPU tensors")
+
+    monkeypatch.setattr(twk, "boundary_scan_cuda", no_kernel)
+    pi, ops, logs, rng = _boundary_ops(8, 9, 5, np.float32)
+    soc, seg_has = _boundary_case("uneven", 9, rng)
+    args = (*map(torch.as_tensor, (pi, ops, logs)), soc, torch.as_tensor(seg_has))
+    before = twk.BOUNDARY_SCAN.launches
+    for g, w in zip(twk.contig_boundaries(*args), twk.contig_boundaries_plain(*args)):
+        assert torch.equal(g, w)
+    assert twk.BOUNDARY_SCAN.launches == before
