@@ -35,7 +35,16 @@ Phases, in order; any failure ends the script with a non-zero exit:
 6. ``estep_direct`` alone at the bench.py C3 shape (22 x 2.5e6 windows,
    M=16, 128 keys, drawn by the port's copy of bench.py's ``synth_contig``;
    median of 3 runs), in Gbp/s, with K6 against its plain version on its
-   operators, then the SM clock under load.
+   operators and K3 against its plain version on the whole C3 input at both
+   rungs, then the SM clock under load.
+
+K3's plain version is the window loop with each step's products summed in
+f64 (``segment_ops_plain(..., sum_dtype=float64)``, the kernel's own
+summation).  On the slice (phase 4, at the fit's rung) and at C3 (phase 6,
+at both rungs) the E-step
+log-likelihood from K3's operators is printed beside the one from its plain
+version's, from the loop summed in f32 (the reference's summation) and from
+the loop in f64, each with its distance from the last (``ll_agreement``).
 
 Every kernel time is printed beside its bound: the least time the card
 could take for the same work on the same inputs, the larger of its
@@ -77,6 +86,9 @@ BF16_ULP = 2.0**-7
 F32_OPS_PER_S = 67e12 / 2
 F64_OPS_PER_S = 34e12 / 2
 HBM_BYTES_PER_S = 3.35e12
+# and 67 TFLOP/s in float64 on its tensor cores (mma.sync f64, K3): the same
+# FMA rate as the float32 CUDA cores
+F64_TC_FMA_PER_S = 67e12 / 2
 
 
 def log(*a):
@@ -98,7 +110,7 @@ def card():
     return smi
 
 
-def bound(name, E, keys, valid, elt=4):
+def bound(name, E, keys, valid, elt=4, cuda_cores=False):
     """(bound_ms, bound_by) of one launch of kernel ``name`` on these inputs:
     the larger of its operations over the peak rate of their type and the
     bytes it must move (each input read once, each output written once) over
@@ -106,7 +118,11 @@ def bound(name, E, keys, valid, elt=4):
     Operations count the valid windows (an invalid window skips the step's
     arithmetic); streams count every window.
 
-      K3 segment_ops      M^3 FMA per window; keys, valid in, (S, M, M) out
+      K3 segment_ops      M^3 f64 FMA per window on the tensor cores, and
+                          per carry entry two f32/f64 conversions (f64
+                          rate), a multiply and a max; ``cuda_cores``: M^3
+                          f32 FMA, the earlier CUDA-core kernel's form of
+                          the same work; keys, valid in, (S, M, M) out
       K1 asc_sweep        M^2 FMA; keys, valid, A_in in, the alpha stream out
       K2 dsc_sweep        2 M^2 f32 FMA and M^2 f64 add; the alpha stream in
       K2g dsc_sweep_gamma K2, plus the (S, L, M) f32 gamma stream out
@@ -119,7 +135,10 @@ def bound(name, E, keys, valid, elt=4):
     b = 5 * W + 4 * (M * M + n_keys * M)  # keys, valid, T and E
     f64 = 0
     if name == "segment_ops":
-        f32, b = nv * M**3, b + 4 * S * (M * M + 1)
+        b += 4 * S * (M * M + 1)
+        if not cuda_cores:
+            return _roofline(2 * nv * M * M, 2 * nv * M * M, b, nv * M**3)
+        f32 = nv * M**3
     elif name == "asc_sweep":
         f32, b = nv * M * M, b + W * M * elt + 8 * S * M
     elif name in ("dsc_sweep", "dsc_sweep_gamma"):
@@ -136,8 +155,8 @@ def bound(name, E, keys, valid, elt=4):
     return _roofline(f32, f64, b)
 
 
-def _roofline(f32, f64, b):
-    t_ops = max(f32 / F32_OPS_PER_S, f64 / F64_OPS_PER_S)
+def _roofline(f32, f64, b, f64_tc=0):
+    t_ops = max(f32 / F32_OPS_PER_S, f64 / F64_OPS_PER_S, f64_tc / F64_TC_FMA_PER_S)
     t_bytes = b / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -224,22 +243,50 @@ def check_close(name, got, want, rtol, atol):
     return err
 
 
+def k3_plain(T, E, keys, valid, prec):
+    "K3's plain version: the window loop with f64 sums."
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    return wk.segment_ops_plain(T, E, keys, valid, prec, sum_dtype=torch.float64)
+
+
+def check_k3(tag, T, E, keys, valid, prec):
+    """K3 against its plain version on one input set at one rung (ops at
+    rtol 1e-3 at 'default', 1e-5 with f32 carries, logs at 1e-5), with two
+    launches bit-identical; raises on a miss.  Returns the max abs err of
+    ops."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    rtol = DEFAULT_RTOL if prec == "default" else HIGHEST_RTOL
+    ops, logs = wk.segment_ops_cuda(T, E, keys, valid, prec)
+    ops2, logs2 = wk.segment_ops_cuda(T, E, keys, valid, prec)
+    if not (torch.equal(ops, ops2) and torch.equal(logs, logs2)):
+        raise AssertionError(f"segment_ops [{tag}]: two launches differ")
+    del ops2, logs2
+    ops_p, logs_p = k3_plain(T, E, keys, valid, prec)
+    err = check_close(f"segment_ops [{tag}] ops", ops, ops_p, rtol,
+                      1e-7 * float(ops_p.abs().max()))
+    check_close(f"segment_ops [{tag}] logs", logs, logs_p, 1e-5,
+                1e-6 * float(logs_p.abs().max()))
+    log(f"segment_ops [{tag}]: {int((ops != ops_p).sum())} of {ops.numel()} ops "
+        f"and {int((logs != logs_p).sum())} of {logs.numel()} logs differ from "
+        f"the plain version's bits")
+    return err
+
+
 def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
     """Each kernel against its plain version on one input set at one rung;
     raises on a miss.  Returns {kernel name: (max abs err, kernel ms, plain
     ms)}."""
     from smcpp_tpu_torch.ops import window_kernel as wk
 
-    rtol = DEFAULT_RTOL if prec == "default" else HIGHEST_RTOL
-    # K3
-    ops, logs = wk.segment_ops_cuda(T, E, keys, valid, prec)
-    ops_p, logs_p = wk.segment_ops_plain(T, E, keys, valid, prec)
-    e3 = check_close(f"segment_ops [{tag}] ops", ops, ops_p, rtol,
-                     1e-7 * float(ops_p.abs().max()))
-    check_close(f"segment_ops [{tag}] logs", logs, logs_p, 1e-5,
-                1e-6 * float(logs_p.abs().max()))
+    e3 = check_k3(tag, T, E, keys, valid, prec)
     t3 = cuda_ms(lambda: wk.segment_ops_cuda(T, E, keys, valid, prec), reps)
-    t3p = cuda_ms(lambda: wk.segment_ops_plain(T, E, keys, valid, prec), 1)
+    t3p = cuda_ms(lambda: k3_plain(T, E, keys, valid, prec), 1)
     # K1
     al, ae = wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec)
     al_p, ae_p = wk.asc_sweep_plain(T, E, keys, valid, A_in, prec)
@@ -543,6 +590,7 @@ def main_path(workdir):
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     pi, T, E = (x.float().contiguous() for x in (pi, T, E))
     estep_breakdown("slice", pi, T, E, im._wkeys, im._wvalid, im._soc)
+    ll_agreement("slice", pi, T, E, im._wkeys, im._wvalid, im._soc, im.precision)
     return (launches, compare_main_path(im),
             os.path.join(out, "model.final.json"), files)
 
@@ -568,6 +616,55 @@ def phase_times(label, shape, phases):
     log(f"{label} breakdown [{shape}]: total {sum(parts):.2f} ms; "
         + ", ".join(f"{n} {t:.2f}" for n, t in zip(names, parts)))
     return dict(zip(names, parts))
+
+
+def k3_bound(E, keys, valid):
+    """K3's entry for ``log_bounds`` (its f64 tensor-core bound), after
+    logging the CUDA-core bound of the same work beside it, the form earlier
+    kernels' rows give."""
+    b, by = bound("segment_ops", E, keys, valid)
+    bc, byc = bound("segment_ops", E, keys, valid, cuda_cores=True)
+    log(f"  segment_ops (K3) bound: f64 tensor cores {b:.4f} ms ({by}); "
+        f"f32 CUDA cores {bc:.4f} ms ({byc})")
+    return b, by
+
+
+def ll_agreement(tag, pi, T, E, keys, valid, soc, prec):
+    """The E-step log-likelihood from K3's operators (through
+    contig_boundaries) beside the one from its plain version's (f64 sums),
+    from the loop summed in f32 (the reference's summation, which the
+    CUDA-core K3 of earlier commits reproduced bit for bit) and from the
+    whole loop in f64 at 'highest' (the exact value, up to f64 rounding),
+    with each one's relative distance from the exact value; raises when
+    K3's differs from its plain version's by more than 1e-6 relative (K6's
+    log-likelihood tolerance)."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    seg_has = torch.any(valid, 1)
+
+    def ll(ops, logs, pi=pi):
+        return float(wk.contig_boundaries_plain(pi, ops, logs, soc, seg_has)[0]
+                     if ops.dtype == torch.float64 else
+                     wk.contig_boundaries(pi, ops.contiguous(), logs.contiguous(),
+                                          soc, seg_has)[0])
+
+    l_k = ll(*wk.segment_ops_cuda(T, E, keys, valid, prec))
+    l_p = ll(*k3_plain(T, E, keys, valid, prec))
+    l_32 = ll(*wk.segment_ops_plain(T, E, keys, valid, prec))
+    l_x = ll(*wk.segment_ops_plain(T.double(), E.double(), keys, valid, "highest"),
+             pi=pi.double())
+    d_p, d_32 = abs(l_k - l_p) / abs(l_p), abs(l_k - l_32) / abs(l_32)
+    x_k, x_p, x_32 = (abs(v - l_x) / abs(l_x) for v in (l_k, l_p, l_32))
+    log(f"E-step loglik [{tag}, {prec!r}]: K3 {l_k!r}, plain (f64 sums) "
+        f"{l_p!r}, plain (f32 sums) {l_32!r}, exact (f64 loop) {l_x!r}; K3's "
+        f"relative difference from the first two {d_p:.3e}, {d_32:.3e}; "
+        f"relative distance from the exact value: K3 {x_k:.3e}, plain (f64 "
+        f"sums) {x_p:.3e}, plain (f32 sums) {x_32:.3e}")
+    if not np.isfinite(l_k) or d_p > 1e-6:
+        raise AssertionError(f"E-step loglik [{tag}]: K3 is {d_p:.3e} from its "
+                             "plain version")
 
 
 def log_bounds(label, times, bounds):
@@ -618,7 +715,7 @@ def posterior_breakdown(im, pi, T, E):
     elt = wk.carry_dtype(prec, torch.float32).itemsize
     M, S = T.shape[0], keys.shape[0]
     log_bounds("posterior", t, {
-        "segment_ops (K3)": bound("segment_ops", E, keys, valid),
+        "segment_ops (K3)": k3_bound(E, keys, valid),
         "contig_boundaries (K6)": scan_bound("boundary_scan", M, S, soc),
         "asc_sweep (K1)": bound("asc_sweep", E, keys, valid, elt),
         "dsc_sweep_gamma (K2g)": bound("dsc_sweep_gamma", E, keys, valid, elt),
@@ -759,7 +856,7 @@ def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
                     f"{T.shape[0]}, {E.shape[0]} keys", phases)
     elt = wk.carry_dtype(precision, torch.float32).itemsize
     log_bounds(f"E-step [{label}]", t, {
-        "segment_ops (K3)": bound("segment_ops", E, keys, valid),
+        "segment_ops (K3)": k3_bound(E, keys, valid),
         "contig_boundaries (K6)": scan_bound("boundary_scan", T.shape[0],
                                              keys.shape[0], soc),
         "asc_sweep (K1)": bound("asc_sweep", E, keys, valid, elt),
@@ -803,7 +900,7 @@ def c3_throughput():
     estep_breakdown("C3", pi_d, T_d, E_d, kd, vd, soc)
     ops, logs = wk.segment_operators(T_d, E_d, kd, vd)
     compare_boundary("C3", pi_d, ops, logs, soc, torch.any(vd, 1), None, 5)
-    del ops
+    del ops, logs
     log(f"C3 E-step: S x L = {keys.shape}, {dt * 1e3:.1f} ms (median of 3), "
         f"{C * WINDOWS * W / dt / 1e9:.2f} Gbp/s, peak mem "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -813,6 +910,9 @@ def c3_throughput():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     log(f"SM clock, max SM clock, power draw right after the C3 runs: {smi}")
+    for prec in ("highest", "default"):
+        check_k3(f"C3 S x L = {keys.shape} {prec}", T_d, E_d, kd, vd, prec)
+        ll_agreement("C3", pi_d, T_d, E_d, kd, vd, soc, prec)
 
 
 def main():

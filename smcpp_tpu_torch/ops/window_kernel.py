@@ -32,11 +32,13 @@ CUDA tensor never falls back to the plain version: the wrapper launches its
 kernel or raises.  The plain versions are also what
 the kernels are held against on the card.
 
-Numerics (identical to the reference): f32 arithmetic with exact f32
-products at every precision rung; at 'default' the K3 carry is stored in
-bf16 after every step and every block rescale, and the alpha stream is
-stored in bf16 (``carry_dtype``); at 'tensorfloat32' and 'highest' both are
-f32.  Every normalizer is window-local, so scale factors cancel exactly.
+Numerics (the reference's): f32 arithmetic with exact f32 products at every
+precision rung; at 'default' the K3 carry is stored in bf16 after every step
+and every block rescale, and the alpha stream is stored in bf16
+(``carry_dtype``); at 'tensorfloat32' and 'highest' both are f32.  Every
+normalizer is window-local, so scale factors cancel exactly.  K3 on the card
+sums each step's products in f64 before rounding them to f32, where the
+plain loop (and the reference) sum in f32 (``segment_ops_plain``).
 
 Environment (read once, at import, as the reference reads them):
 SMCPP_TPU_MATMUL_PRECISION sets the default rung (``MATMUL_PRECISION``,
@@ -203,11 +205,21 @@ def _stream(device):
 def segment_ops_cuda(T, E, keys, valid, precision):
     """K3 (replaces window_kernel.py:_steps_block / segment_operators).
 
-    What bounds it: serial depth along L windows and M^3 FMAs per window per
-    segment.  Design: one warp per segment, lane k owns column k of the
-    (M, M) carry in registers, T^T and the normalized emission table sit in
-    shared memory, and the 8-window block rescale is one warp max; no block
-    barrier inside the window loop.  Returns (ops (S, M, M), logs (S,))."""
+    What bounds it: its products.  Each valid window is an (M, M) by (M, M)
+    product per segment, M^3 FMAs on the f64 tensor cores (67 TFLOP/s dense
+    on the H100 SXM, the CUDA cores' f32 rate), each step depending on the
+    one before; beside them, two f32/f64 conversions per carry entry.  Design
+    (csrc/window_kernels.cu): a step computes the transpose, Y^T = X^T T,
+    with mma.sync m16n8k16 f64 tiles, with the contraction index permuted so
+    that one step's accumulator is, entry for entry, the next step's A
+    operand (no shuffles); T's fragments stay in registers.  Each entry's
+    products are exact and summed in f64, then rounded once to f32, so the
+    kernel agrees bit for bit, but for rare last-bit differences, with
+    ``segment_ops_plain(..., sum_dtype=torch.float64)``.  One warp per
+    segment at M <= 16, two (16 columns of X each, the block rescale's
+    maximum exchanged under a named barrier) at 17 <= M <= 32; the
+    normalized emission table in shared memory, or global memory past a
+    block's.  Returns (ops (S, M, M), logs (S,))."""
     _check_inputs(T, E, keys, valid)
     S, L = keys.shape
     M = T.shape[0]
@@ -511,15 +523,22 @@ def viterbi_boundary_cuda(pi, Wops, seg_of_contig):
 # Plain PyTorch versions (the CPU path and the kernels' reference)
 # ---------------------------------------------------------------------------
 
-def segment_ops_plain(T, E, keys, valid, precision):
+def segment_ops_plain(T, E, keys, valid, precision, sum_dtype=None):
     """Python loop over windows: the arithmetic of _steps_block, with the
-    carry laid out (S, i, k).  Returns (ops (S, M, M), logs (S,))."""
+    carry laid out (S, i, k).  Returns (ops (S, M, M), logs (S,)).
+
+    ``sum_dtype`` is the dtype in which each step's products are summed
+    before the sum is rounded to the compute dtype: None sums in the compute
+    dtype, as the reference does (the CPU path); torch.float64 is K3's
+    summation on the card (exact products, f64 sums, one rounding), the
+    plain version the kernel is held to."""
     S, L = keys.shape
     M = T.shape[0]
     dt = E.dtype
     cdt = carry_dtype(precision, T.dtype)
     tiny = torch.finfo(dt).tiny
-    Tt = T.T
+    sdt = dt if sum_dtype is None else sum_dtype
+    Tt = T.T.to(sdt)
     X = torch.eye(M, dtype=cdt, device=T.device).expand(S, M, M)
     logs = torch.zeros(S, dtype=T.dtype, device=T.device)
     for l in range(L):
@@ -527,7 +546,7 @@ def segment_ops_plain(T, E, keys, valid, precision):
         eT = E[k]  # (S, M)
         em = torch.clamp(torch.amax(eT, 1), min=tiny)
         eT = eT / em[:, None]
-        Y = torch.matmul(Tt, X.to(dt)) * eT[:, :, None]
+        Y = torch.matmul(Tt, X.to(sdt)).to(dt) * eT[:, :, None]
         Y = torch.clamp(Y, min=FLOOR)
         X = torch.where(v[:, None, None], Y, X.to(dt)).to(cdt)
         logs = logs + torch.where(v, torch.log(em), 0.0)

@@ -22,6 +22,19 @@ and K2g sum their partials in an order fixed by (S, n_keys, M) (gsum in
 for bit.  K6 is an f32 recursion in another summation order: rtol 1e-5 /
 atol 1e-7 on the boundary vectors (normalized to a sum or a maximum of 1),
 rtol 1e-6 on the f64 log-likelihood.
+
+K3 sums each step's exact products in f64 on the tensor cores and rounds
+each sum once to f32; its plain version is the same loop summed in f64
+(``segment_ops_plain(..., sum_dtype=torch.float64)``, ``_k3_plain``).  The
+two round the same f32 value except where an exact sum lies within the f64
+sums' rounding error of an f32 rounding boundary, so they agree bit for bit
+in practice, and are held at the tolerances above: ops rtol 1e-5 with f32
+carries and 1e-3 at 'default', logs rtol 1e-5.  (A sum formed in f32 in
+another order than the plain loop's would miss 'default': a last-bit
+difference flips a bf16 rounding, 2^-8 relative, about once in 2^16 sums.)
+With f32 carries K3 also stays within rtol 1e-5 of the plain loop summed in
+f32, the reference's summation, over segments of a few hundred windows.
+Two launches are bit-identical.
 """
 
 import numpy as np
@@ -64,6 +77,24 @@ def _close(got, want, rtol, atol_frac):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
+def _k3_plain(T, E, keys, valid, precision):
+    "K3's plain version: the window loop with f64 sums (module docstring)."
+    return wk.segment_ops_plain(T, E, keys, valid, precision, sum_dtype=torch.float64)
+
+
+def _check_k3(T, E, keys, valid, precision, rtol):
+    """K3 against its plain version at the module's tolerances; two launches
+    bit-identical."""
+    ops, logs = wk.segment_ops_cuda(T, E, keys, valid, precision)
+    ops2, logs2 = wk.segment_ops_cuda(T, E, keys, valid, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(ops, ops2) and torch.equal(logs, logs2)
+    ops_p, logs_p = _k3_plain(T, E, keys, valid, precision)
+    _close(ops, ops_p, rtol, 1e-7)
+    _close(logs, logs_p, 1e-5, 1e-6)
+    return ops, logs
+
+
 # M = 15 and 17 are the stage-2 M of estimate's defaults (balanced states
 # and empirical TMRCA); 15 pads to 16 lanes with one masked lane.
 MS = [2, 5, 15, 16, 17, 32]
@@ -74,12 +105,28 @@ MS = [2, 5, 15, 16, 17, 32]
 def test_segment_ops_matches_plain(dev, M, precision, rtol):
     T, E, keys, valid, _, _ = _problem(0, 40, 256, M, 89, dev)
     before = wk.SEGMENT_OPS.launches
-    ops, logs = wk.segment_ops_cuda(T, E, keys, valid, precision)
-    torch.cuda.synchronize()
-    assert wk.SEGMENT_OPS.launches == before + 1
-    ops_p, logs_p = wk.segment_ops_plain(T, E, keys, valid, precision)
-    _close(ops, ops_p, rtol, 1e-7)
-    _close(logs, logs_p, 1e-5, 1e-6)
+    ops, logs = _check_k3(T, E, keys, valid, precision, rtol)
+    assert wk.SEGMENT_OPS.launches == before + 2
+    if precision == "highest":  # the reference's f32 summation
+        ops_p, logs_p = wk.segment_ops_plain(T, E, keys, valid, precision)
+        _close(ops, ops_p, rtol, 1e-7)
+        _close(logs, logs_p, 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("M", MS)
+@pytest.mark.parametrize("precision,rtol", [("highest", 1e-5), ("default", 1e-3)])
+def test_segment_ops_long_segments(dev, M, precision, rtol):
+    """S = 16 segments of L = 8192 windows (C3's L) with a near-identity T,
+    as the fits have (diagonal about 0.98): 8192 dependent steps, each a
+    chance for a rounding to drift or flip."""
+    rng = np.random.RandomState(11)
+    T = rng.dirichlet(np.ones(M) * 40, size=M) + np.eye(M) * 50
+    T = torch.as_tensor(T / T.sum(1, keepdims=True), dtype=torch.float32, device=dev)
+    E = torch.as_tensor(rng.uniform(0.05, 1.0, (128, M)), dtype=torch.float32, device=dev)
+    keys = torch.as_tensor(rng.randint(0, 128, (16, 8192)).astype(np.int32), device=dev)
+    valid = rng.rand(16, 8192) < 0.95
+    valid[-1, 4096:] = False
+    _check_k3(T, E, keys, torch.as_tensor(valid, device=dev), precision, rtol)
 
 
 @pytest.mark.parametrize("M", MS)
@@ -105,14 +152,12 @@ def test_sweeps_match_plain(dev, M, precision, rtol):
 
 def test_large_key_table_uses_extended_shared_memory(dev):
     """500 keys at M = 32 put every kernel's shared memory over the 48 KB
-    default, the opt-in path: K3 70 KB, K1 64 KB; K2's tables (192 KB) with
+    default, the opt-in path: K3 66 KB, K1 64 KB; K2's tables (192 KB) with
     its eight warps' f32 alpha buffers and u vectors (66 KB) pass a block's
     227 KB, so K2 takes the global-table route with 66 KB of shared memory.
     Tables past a block's shared memory: test_large_key_tables_match_plain."""
     T, E, keys, valid, A_in, Q_end = _problem(4, 24, 96, 32, 500, dev)
-    ops, logs = wk.segment_ops_cuda(T, E, keys, valid, "highest")
-    ops_p, logs_p = wk.segment_ops_plain(T, E, keys, valid, "highest")
-    _close(ops, ops_p, 1e-5, 1e-7)
+    _check_k3(T, E, keys, valid, "highest", 1e-5)
     alphas, a_end = wk.asc_sweep_cuda(T, E, keys, valid, A_in, "highest")
     alphas_p, a_end_p = wk.asc_sweep_plain(T, E, keys, valid, A_in, "highest")
     _close(alphas, alphas_p, 1e-5, 1e-7)
@@ -131,10 +176,7 @@ def test_large_key_tables_match_plain(dev, n_keys, M, precision, rtol):
     and K3 from about 1800): every kernel reads its emission rows from
     global memory and agrees with its plain version."""
     T, E, keys, valid, A_in, Q_end = _problem(6, 24, 96, M, n_keys, dev)
-    ops, logs = wk.segment_ops_cuda(T, E, keys, valid, precision)
-    ops_p, logs_p = wk.segment_ops_plain(T, E, keys, valid, precision)
-    _close(ops, ops_p, rtol, 1e-7)
-    _close(logs, logs_p, 1e-5, 1e-6)
+    _check_k3(T, E, keys, valid, precision, rtol)
     alphas, a_end = wk.asc_sweep_cuda(T, E, keys, valid, A_in, precision)
     alphas_p, a_end_p = wk.asc_sweep_plain(T, E, keys, valid, A_in, precision)
     _close(alphas, alphas_p, BF16_ULP if precision == "default" else rtol, 1e-7)

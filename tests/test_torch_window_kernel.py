@@ -195,6 +195,194 @@ def test_unported_modes_raise():
     torch.testing.assert_close(sums[valid], torch.ones_like(sums[valid]))
 
 
+@pytest.mark.parametrize("precision,dtype,M", CASES)
+def test_segment_ops_plain_f64_sums(precision, dtype, M):
+    """The plain loop with each step's products summed in f64 and rounded
+    once (K3's summation on the card, the plain version it is held to)
+    agrees with the reference at the same bounds; with f64 inputs it is the
+    loop itself."""
+    _, T, E, keys, valid, _, _ = _problem(0, 12, 256, M, 89, dtype)
+    ref = jwk.segment_operators(*map(jnp.asarray, (T, E, keys, valid)),
+                                precision=precision)
+    args = (*map(torch.as_tensor, (T, E, keys, valid)), precision)
+    got = twk.segment_ops_plain(*args, sum_dtype=torch.float64)
+    assert got[0].dtype == got[1].dtype == torch.from_numpy(T).dtype
+    rtol, atol = BOUNDS[(precision, dtype)]
+    for g, r in zip(got, ref):
+        _close(g, r, rtol, atol)
+    if dtype == np.float64:
+        for g, w in zip(got, twk.segment_ops_plain(*args)):
+            assert torch.equal(g, w)
+
+
+def _round_f32(x):
+    "The Fraction ``x`` rounded to the nearest float32 (ties to even)."
+    from fractions import Fraction
+
+    c = np.float32(float(x))
+    best = None
+    for y in (np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf))):
+        d = abs(Fraction(float(y)) - x)
+        key = (d, int(np.array(y).view(np.int32)) & 1)
+        if best is None or key < best[0]:
+            best = (key, y)
+    return best[1]
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("M", [16, 32])
+def test_f64_sums_are_correctly_rounded(precision, M):
+    """Two windows from the identity with unit emissions: the first step's
+    carry is T^T (rounded to the carry dtype), the second's each entry's
+    exact sum of M products rounded once to f32 (then to the carry dtype) --
+    the f32 value K3 forms from its f64 tensor-core sums, whatever their
+    order."""
+    from fractions import Fraction
+
+    rng = np.random.RandomState(23 + M)
+    T = torch.as_tensor(rng.dirichlet(np.ones(M), size=M), dtype=torch.float32)
+    E = torch.ones((1, M), dtype=torch.float32)
+    keys = torch.zeros((1, 2), dtype=torch.int32)
+    valid = torch.ones((1, 2), dtype=torch.bool)
+    cdt = twk.carry_dtype(precision, torch.float32)
+    X1 = twk.segment_ops_plain(T, E, keys[:, :1], valid[:, :1], precision,
+                               sum_dtype=torch.float64)[0][0]
+    assert torch.equal(X1, T.T.to(cdt).float())
+    got = twk.segment_ops_plain(T, E, keys, valid, precision,
+                                sum_dtype=torch.float64)[0][0]
+    Tf = [[Fraction(float(v)) for v in row] for row in T.tolist()]
+    Xf = [[Fraction(float(v)) for v in row] for row in X1.tolist()]
+    want = np.array([[_round_f32(sum(Tf[j][i] * Xf[j][k] for j in range(M)))
+                      for k in range(M)] for i in range(M)], np.float32)
+    want = torch.as_tensor(want).clamp(min=twk.FLOOR).to(cdt).float()
+    assert torch.equal(got, want)
+
+
+def _split_bf16x3(x):
+    "hi, mid, lo in bf16 (8 significand bits each) with hi + mid + lo == x."
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def _ops_default(T, E, keys, valid, step_sum):
+    """segment_ops_plain's loop at 'default', with each step's sum T^T X
+    formed by ``step_sum(X)``; returns ops."""
+    S, L = keys.shape
+    X = torch.eye(T.shape[0]).expand(S, -1, -1).to(torch.bfloat16)
+    for l in range(L):
+        eT = E[keys[:, l]]
+        eT = eT / torch.clamp(torch.amax(eT, 1), min=torch.finfo(torch.float32).tiny)[:, None]
+        Y = torch.clamp(step_sum(X.float()) * eT[:, :, None], min=twk.FLOOR)
+        X = torch.where(valid[:, l, None, None], Y, X.float()).to(torch.bfloat16)
+        if (l + 1) % twk.RESCALE_EVERY == 0:
+            mx = torch.clamp(X.float().abs().amax((1, 2)), min=torch.finfo(torch.float32).tiny)
+            X = (X.float() / mx[:, None, None]).to(torch.bfloat16)
+    return X.float()
+
+
+@pytest.mark.parametrize("M", [16, 32])
+def test_default_rung_depends_on_the_summation(M):
+    """Why K3's plain version is the loop summed in f64.  At 'default' the
+    carry is rounded to bf16 after every step, so a last-bit difference in
+    a step's f32 sum flips a rounding now and then (2^-8 relative, past the
+    1e-3 tolerance of ops).  Over 256 windows, two summations each accurate
+    to f32 miss that tolerance against the f32-summed loop: K3's (f64 sums,
+    one rounding) and a bf16 tensor-core design's (T split into three exact
+    bf16 parts; X T_hi accumulated in f32 apart from X T_mid + X T_lo, then
+    added: exact products, so the best such a design can do).  K3's agrees
+    with its plain version bit for bit; at 'highest' all agree within
+    1e-5."""
+    _, T, E, keys, valid, _, _ = map(torch.as_tensor, _problem(0, 40, 256, M, 89, np.float32))
+    parts = [p.float() for p in _split_bf16x3(T)]
+    assert torch.equal(parts[0] + parts[1] + parts[2], T)
+    Tt = T.T
+    ref = twk.segment_ops_plain(T, E, keys, valid, "default")[0]
+    f32 = _ops_default(T, E, keys, valid, lambda X: torch.matmul(Tt, X))
+    assert torch.equal(f32, ref)  # the loop above is segment_ops_plain's
+    f64 = _ops_default(T, E, keys, valid,
+                       lambda X: torch.matmul(Tt.double(), X.double()).float())
+    assert torch.equal(f64, twk.segment_ops_plain(T, E, keys, valid, "default",
+                                                  sum_dtype=torch.float64)[0])
+    hi, mid, lo = (p.T for p in parts)
+    split = _ops_default(T, E, keys, valid, lambda X: torch.matmul(hi, X)
+                         + (torch.matmul(lo, X) + torch.matmul(mid, X)))
+
+    def misses(got, want, rtol):
+        atol = 1e-7 * float(want.abs().max())
+        return int(((got - want).abs() > atol + rtol * want.abs()).sum())
+
+    assert misses(f64, ref, 1e-3) > 0 and misses(split, ref, 1e-3) > 0
+    high = [twk.segment_ops_plain(T, E, keys, valid, "highest", sum_dtype=d)[0]
+            for d in (None, torch.float64)]
+    assert misses(high[1], high[0], 1e-5) == 0
+
+
+def _k3_tile_maps(MB):
+    """K3's register maps (csrc/window_kernels.cu) for the m16n8k16 f64 tile,
+    per warp w of the segment's MB // 16 and lane (g, t): the (row k,
+    column j) of X^T each A register of k16-tile Q holds, the (row j, column
+    i) of T each B register of n-tile n holds, and the (row k, column i) of
+    Y^T = X^T T each accumulator register holds; with the tile's physical
+    positions (the PTX fragment layout) alongside."""
+    a, b, d = {}, {}, {}
+    for w in range(MB // 16):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            kb = 16 * w + g
+            jq = lambda q: 8 * (q >> 1) + 2 * t + (q & 1)  # noqa: E731
+            for Q in range(MB // 16):
+                for r in range(8):
+                    a[w, Q, g + 8 * (r & 1), t + 4 * (r >> 1)] = (
+                        kb + 8 * (r & 1), jq(4 * Q + (r >> 1)))
+                for n in range(MB // 8):
+                    for r in range(4):
+                        b[w, Q, n, t + 4 * r, g] = (jq(4 * Q + r), 8 * n + g)
+            for n in range(MB // 8):
+                for r in range(4):
+                    d[w, n, lane, r] = (g + 8 * (r >> 1), 2 * t + (r & 1),
+                                        kb + 8 * (r >> 1), 8 * n + 2 * t + (r & 1))
+    return a, b, d
+
+
+@pytest.mark.parametrize("MB", [16, 32])
+def test_k3_fragments_reuse_the_accumulator(MB):
+    """The permuted contraction index of K3's tiles: every physical A and B
+    position is filled once, the tiles' products are Y^T = X^T T, and the
+    entries of X^T a lane holds in its accumulator are exactly those it
+    feeds the next step's A (no shuffles)."""
+    a, b, d = _k3_tile_maps(MB)
+    NW, NQ, NN = MB // 16, MB // 16, MB // 8
+    assert len(a) == NW * NQ * 16 * 16 and len(b) == NW * NQ * NN * 16 * 8
+    rng = np.random.RandomState(24)
+    Xt, T = rng.rand(MB, MB), rng.rand(MB, MB)
+    for w in range(NW):
+        for n in range(NN):
+            D = np.zeros((16, 8))
+            for Q in range(NQ):
+                A = np.zeros((16, 16))
+                B = np.zeros((16, 8))
+                for row in range(16):
+                    for col in range(16):
+                        A[row, col] = Xt[a[w, Q, row, col]]
+                    for col in range(8):
+                        B[row, col] = T[b[w, Q, n, row, col]]
+                D += A @ B
+            for lane in range(32):
+                for r in range(4):
+                    row, col, k, i = d[w, n, lane, r]
+                    np.testing.assert_allclose(D[row, col], (Xt @ T)[k, i], rtol=1e-12)
+    for w in range(NW):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            held = {(k, i) for (w_, n, ln, r), (_, _, k, i) in d.items()
+                    if w_ == w and ln == lane}
+            fed = {a[w, Q, g + 8 * (r & 1), t + 4 * (r >> 1)]
+                   for Q in range(NQ) for r in range(8)}
+            assert held == fed and len(held) == 4 * NN
+
+
 def test_check_key_range():
     twk.check_key_range(np.array([[0, 3], [19, 2]], np.int32), 20)
     twk.check_key_range(np.zeros((0, 8), np.int32), 1)
