@@ -35,8 +35,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
 6. ``estep_direct`` alone at the bench.py C3 shape (22 x 2.5e6 windows,
    M=16, 128 keys, drawn by the port's copy of bench.py's ``synth_contig``;
    median of 3 runs), in Gbp/s, with K6 against its plain version on its
-   operators and K3 against its plain version on the whole C3 input at both
-   rungs, then the SM clock under load.
+   operators and K3 and K1 against their plain versions on the whole C3
+   input at both rungs, then the SM clock under load.
 
 K3's plain version is the window loop with each step's products summed in
 f64 (``segment_ops_plain(..., sum_dtype=float64)``, the kernel's own
@@ -45,6 +45,15 @@ at both rungs) the E-step
 log-likelihood from K3's operators is printed beside the one from its plain
 version's, from the loop summed in f32 (the reference's summation) and from
 the loop in f64, each with its distance from the last (``ll_agreement``).
+
+K1's plain version is likewise the ascending sweep with each window's
+products summed in f64 (``asc_sweep_plain(..., sum_dtype=float64)``); on
+every input set K1 is held to it (the count of differing entries printed)
+and to the f32-summed loop at the old tolerances, or, where that loop has
+drifted past them, to lying nearer the all-f64 loop than it (``check_k1``);
+its launch plan (warps per block, blocks, registers) is printed, and the
+E-step's xisum and gsum from K1's stream are printed beside those from the
+f32-summed loop's (``k1_estep_agreement``).
 
 Every kernel time is printed beside its bound: the least time the card
 could take for the same work on the same inputs, the larger of its
@@ -86,8 +95,8 @@ BF16_ULP = 2.0**-7
 F32_OPS_PER_S = 67e12 / 2
 F64_OPS_PER_S = 34e12 / 2
 HBM_BYTES_PER_S = 3.35e12
-# and 67 TFLOP/s in float64 on its tensor cores (mma.sync f64, K3): the same
-# FMA rate as the float32 CUDA cores
+# and 67 TFLOP/s in float64 on its tensor cores (mma.sync f64, K3 and K1):
+# the same FMA rate as the float32 CUDA cores
 F64_TC_FMA_PER_S = 67e12 / 2
 
 
@@ -123,7 +132,10 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False):
                           rate), a multiply and a max; ``cuda_cores``: M^3
                           f32 FMA, the earlier CUDA-core kernel's form of
                           the same work; keys, valid in, (S, M, M) out
-      K1 asc_sweep        M^2 FMA; keys, valid, A_in in, the alpha stream out
+      K1 asc_sweep        M^2 f64 FMA per window on the tensor cores (the
+                          f32 CUDA cores' rate, so the same bound as the
+                          earlier CUDA-core kernel's M^2 f32 FMA); keys,
+                          valid, A_in in, the alpha stream out
       K2 dsc_sweep        2 M^2 f32 FMA and M^2 f64 add; the alpha stream in
       K2g dsc_sweep_gamma K2, plus the (S, L, M) f32 gamma stream out
       K4 viterbi_ops      M^3 add and M^3 max; (S, M, M) out
@@ -140,7 +152,7 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False):
             return _roofline(2 * nv * M * M, 2 * nv * M * M, b, nv * M**3)
         f32 = nv * M**3
     elif name == "asc_sweep":
-        f32, b = nv * M * M, b + W * M * elt + 8 * S * M
+        return _roofline(0, 0, b + W * M * elt + 8 * S * M, nv * M * M)
     elif name in ("dsc_sweep", "dsc_sweep_gamma"):
         f32, f64 = 2 * nv * M * M, nv * M * M
         b += W * M * elt + 8 * S * M + 8 * (M * M + n_keys * M)
@@ -278,6 +290,88 @@ def check_k3(tag, T, E, keys, valid, prec):
     return err
 
 
+def k1_plain(T, E, keys, valid, A_in, prec):
+    "K1's plain version: the ascending sweep with f64 sums."
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    return wk.asc_sweep_plain(T, E, keys, valid, A_in, prec, sum_dtype=torch.float64)
+
+
+def check_k1(tag, T, E, keys, valid, A_in, prec):
+    """K1 against its plain version (the sweep with f64 sums): alpha_end at
+    rtol 1e-5, the stream at rtol 1e-5, or one bf16 ulp where it is stored
+    in bf16; two launches bit-identical.  Then against the f32-summed loop
+    (the reference's summation) at the same tolerances; where that loop has
+    drifted past them (a near-identity T over many windows accumulates its
+    f32 sums' rounding), K1 must lie no farther than it from the exact loop
+    (the sweep in f64 throughout).  Logs the count of entries that differ
+    from the plain version's bits, the distances from the exact loop when
+    they are taken, and K1's launch (asc_sweep_plan); raises on a miss.
+    Returns (max abs err of alpha_end against the plain version, K1's
+    stream, the f32-summed loop's stream)."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    al, ae = wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec)
+    al2, ae2 = wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec)
+    if not (torch.equal(al, al2) and torch.equal(ae, ae2)):
+        raise AssertionError(f"asc_sweep [{tag}]: two launches differ")
+    del al2, ae2
+    s_tol = BF16_ULP if al.dtype == torch.bfloat16 else HIGHEST_RTOL
+    al_p, ae_p = k1_plain(T, E, keys, valid, A_in, prec)
+    err = check_close(f"asc_sweep [{tag}] alpha_end", ae, ae_p, HIGHEST_RTOL, 1e-7)
+    check_close(f"asc_sweep [{tag}] alphas", al, al_p, s_tol, 1e-7)
+    n_al, n_ae = int((al != al_p).sum()), int((ae != ae_p).sum())
+    del al_p, ae_p
+    al_32, ae_32 = wk.asc_sweep_plain(T, E, keys, valid, A_in, prec)
+    try:
+        check_close(f"asc_sweep [{tag}] alpha_end (f32 sums)", ae, ae_32, HIGHEST_RTOL, 1e-7)
+        check_close(f"asc_sweep [{tag}] alphas (f32 sums)", al, al_32, s_tol, 1e-7)
+        vs_32 = "within tolerance of the f32-summed loop"
+    except AssertionError as miss:
+        al_x, ae_x = wk.asc_sweep_plain(T.double(), E.double(), keys, valid,
+                                        A_in.double(), "highest")
+        pairs = [("alpha_end", ae, ae_32, ae_x)]
+        if al.dtype == torch.float32:
+            pairs.append(("stream", al, al_32, al_x))
+        dist = {}
+        for name, k, f32, x in pairs:
+            d = [float(((y.double() - x).abs() / (x.abs() + 1e-7)).max()) for y in (k, f32)]
+            dist[name] = d
+            if d[0] > d[1]:
+                raise AssertionError(
+                    f"asc_sweep [{tag}] {name}: {miss}; and K1 lies farther from "
+                    f"the exact loop ({d[0]:.3e}) than the f32-summed loop ({d[1]:.3e})"
+                ) from miss
+        del al_x
+        vs_32 = ("past tolerance of the f32-summed loop, and nearer the exact loop "
+                 "(max relative distance, K1 / f32-summed loop: " + ", ".join(
+                     f"{n} {d[0]:.3e} / {d[1]:.3e}" for n, d in dist.items()) + ")")
+    plan = wk.asc_sweep_plan(keys.shape[0], T.shape[0], E.shape[0],
+                             al.dtype == torch.bfloat16)
+    log(f"asc_sweep [{tag}]: {n_al} of {al.numel()} stream and {n_ae} of "
+        f"{ae.numel()} alpha_end entries differ from the plain version's bits; "
+        f"{vs_32}; launch {plan}")
+    return err, al, al_32.contiguous()
+
+
+def k1_estep_agreement(tag, T, E, keys, valid, Q_end, alphas, alphas_32):
+    """The E-step's xisum and gsum (K2 on each stream) from K1's alpha
+    stream beside those from the f32-summed loop's: logs the largest
+    difference of each, relative to its largest entry."""
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    _, xo, gs = wk.dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end)
+    _, xo_p, gs_p = wk.dsc_sweep_cuda(T, E, keys, valid, alphas_32, Q_end)
+    dx = float((xo - xo_p).abs().max() / xo_p.abs().max())
+    dg = float((gs - gs_p).abs().max() / gs_p.abs().max())
+    log(f"E-step from K1's stream [{tag}]: xisum and gsum differ from the "
+        f"f32-summed loop's by {dx:.3e} and {dg:.3e} (of their largest entries)")
+
+
 def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
     """Each kernel against its plain version on one input set at one rung;
     raises on a miss.  Returns {kernel name: (max abs err, kernel ms, plain
@@ -287,17 +381,13 @@ def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
     e3 = check_k3(tag, T, E, keys, valid, prec)
     t3 = cuda_ms(lambda: wk.segment_ops_cuda(T, E, keys, valid, prec), reps)
     t3p = cuda_ms(lambda: k3_plain(T, E, keys, valid, prec), 1)
-    # K1
-    al, ae = wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec)
-    al_p, ae_p = wk.asc_sweep_plain(T, E, keys, valid, A_in, prec)
-    e1 = check_close(f"asc_sweep [{tag}] alpha_end", ae, ae_p,
-                     HIGHEST_RTOL, 1e-7)
-    check_close(f"asc_sweep [{tag}] alphas", al, al_p,
-                BF16_ULP if prec == "default" else HIGHEST_RTOL, 1e-7)
+    # K1, and the E-step from its stream
+    e1, al, al_p = check_k1(tag, T, E, keys, valid, A_in, prec)
+    k1_estep_agreement(tag, T, E, keys, valid, Q_end, al, al_p)
+    del al
     t1 = cuda_ms(lambda: wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec), reps)
-    t1p = cuda_ms(lambda: wk.asc_sweep_plain(T, E, keys, valid, A_in, prec), 1)
+    t1p = cuda_ms(lambda: k1_plain(T, E, keys, valid, A_in, prec), 1)
     # K2 on the same (plain) stream, so only K2 differs
-    al_p = al_p.contiguous()
     u, xo, gs = wk.dsc_sweep_cuda(T, E, keys, valid, al_p, Q_end)
     u_p, xo_p, gs_p = wk.dsc_sweep_plain(T, E, keys, valid, al_p, Q_end)
     check_close(f"dsc_sweep [{tag}] u_start", u, u_p, HIGHEST_RTOL, 1e-7)
@@ -913,6 +1003,13 @@ def c3_throughput():
     for prec in ("highest", "default"):
         check_k3(f"C3 S x L = {keys.shape} {prec}", T_d, E_d, kd, vd, prec)
         ll_agreement("C3", pi_d, T_d, E_d, kd, vd, soc, prec)
+        ops, logs = wk.segment_operators(T_d, E_d, kd, vd, prec)
+        _, A_in, Q_end, _ = wk.contig_boundaries(pi_d, ops, logs, soc, torch.any(vd, 1))
+        del ops, logs
+        tag = f"C3 S x L = {keys.shape} {prec}"
+        _, al, al_p = check_k1(tag, T_d, E_d, kd, vd, A_in.contiguous(), prec)
+        k1_estep_agreement(tag, T_d, E_d, kd, vd, Q_end.contiguous(), al, al_p)
+        del al, al_p
 
 
 def main():

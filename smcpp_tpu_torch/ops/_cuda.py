@@ -35,6 +35,8 @@ _SIGNATURES = {
     "window_kernels.cu": {
         "smcpp_segment_ops": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
         "smcpp_asc_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "smcpp_asc_sweep_plan": [_I, _I, _I, _I, _P],
+        "smcpp_asc_div_check": [_P, _P, _I, _P, _P],
     },
     "dsc_kernels.cu": {
         "smcpp_dsc_sweep": [

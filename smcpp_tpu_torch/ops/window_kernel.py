@@ -36,9 +36,10 @@ Numerics (the reference's): f32 arithmetic with exact f32 products at every
 precision rung; at 'default' the K3 carry is stored in bf16 after every step
 and every block rescale, and the alpha stream is stored in bf16
 (``carry_dtype``); at 'tensorfloat32' and 'highest' both are f32.  Every
-normalizer is window-local, so scale factors cancel exactly.  K3 on the card
-sums each step's products in f64 before rounding them to f32, where the
-plain loop (and the reference) sum in f32 (``segment_ops_plain``).
+normalizer is window-local, so scale factors cancel exactly.  K3 and K1 on
+the card sum each step's products in f64 before rounding them to f32, where
+the plain loops (and the reference) sum in f32 (``segment_ops_plain``,
+``asc_sweep_plain``; their ``sum_dtype=torch.float64`` is the kernels').
 
 Environment (read once, at import, as the reference reads them):
 SMCPP_TPU_MATMUL_PRECISION sets the default rung (``MATMUL_PRECISION``,
@@ -46,6 +47,7 @@ SMCPP_TPU_MATMUL_PRECISION sets the default rung (``MATMUL_PRECISION``,
 it to the rung, 'float32' or 'bfloat16' pins it).
 """
 
+import ctypes
 import os
 
 import numpy as np
@@ -248,12 +250,27 @@ def segment_ops_cuda(T, E, keys, valid, precision):
 def asc_sweep_cuda(T, E, keys, valid, A_in, precision):
     """K1 (replaces pallas_sweeps.py:_asc_kernel).
 
-    What bounds it: serial depth (L windows, M^2 FMAs each) and the alpha
-    stream written to device memory.  Design: one warp per segment, lane i
-    owns alpha[i] and column i of T in registers, the other alphas arrive by
-    warp shuffle, and the stream is laid out (S, L, M) so each window is one
-    contiguous M-vector store.  Returns (alphas (S, L, M) in the carry
-    dtype, alpha_end (S, M) f32)."""
+    What bounds it: serial depth.  Each segment walks L dependent windows,
+    each M^2 FMAs (on the f64 tensor cores, whose rate is the f32 CUDA
+    cores', so the bound is unchanged), a row maximum and M quotients, and a
+    real E-step has only a few hundred warps' worth of segments, about one
+    per SM sub-partition; the alpha stream it writes sets the byte bound.
+    Design (csrc/window_kernels.cu): one warp walks 16 segments, and a
+    window's step is the product of their (16, M) carry by T with mma.sync
+    m16n8k16 f64 tiles, the segments as the tile's rows, K3's permuted
+    contraction index reusing the accumulator as the next operand, T's
+    fragments in registers; the row maximum is two shuffles for all 16
+    segments; each row's quotients come from one reciprocal and one
+    corrected product per entry; keys and valid flags are staged per
+    32-window chunk in shared memory, a chunk ahead; one block per warp.
+    Each entry's products are exact and summed in f64, then rounded once to
+    f32, and each quotient is correctly rounded down to 2^-90 of its row's
+    maximum, so the kernel agrees bit for bit, but for rare last-bit
+    differences, with its plain version ``asc_sweep_plain(...,
+    sum_dtype=torch.float64)``; the stream is laid out (S, L, M), one
+    contiguous M-vector per segment and window.  ``asc_sweep_plan`` gives
+    the grid and registers.  Returns (alphas (S, L, M) in the carry dtype,
+    alpha_end (S, M) f32)."""
     _check_inputs(T, E, keys, valid, A_in)
     S, L = keys.shape
     M = T.shape[0]
@@ -272,6 +289,34 @@ def asc_sweep_cuda(T, E, keys, valid, A_in, precision):
         ASC_SWEEP.name,
     )
     return alphas, alpha_end
+
+
+def asc_sweep_plan(S, M, n_keys, bf16):
+    """K1's launch on the card for these sizes: {warps per block, blocks,
+    registers per thread, shared bytes per block, whether the emission
+    table is in shared memory, spill bytes per thread}."""
+    out = (ctypes.c_int * 6)()
+    _cuda.check(_cuda.lib().smcpp_asc_sweep_plan(S, M, n_keys, int(bf16), out),
+                ASC_SWEEP.name)
+    keys = ("warps_per_block", "blocks", "registers", "shared_bytes",
+            "shared_table", "spill_bytes")
+    return dict(zip(keys, list(out)))
+
+
+def asc_div_check(a, b):
+    """K1's quotients, formed from one reciprocal per row, against IEEE
+    division on the pairs (a, b) (f32 CUDA tensors of one shape): returns
+    (the number of pairs in the range where K1's quotient is the correctly
+    rounded one, the number of those whose quotients differ in any bit).  A
+    check of the kernel's arithmetic; no launch of K1."""
+    if a.dtype != torch.float32 or b.shape != a.shape or b.dtype != a.dtype:
+        raise ValueError("asc_div_check takes two float32 tensors of one shape")
+    a, b = a.contiguous(), b.contiguous()
+    counts = torch.zeros(2, dtype=torch.int64, device=a.device)
+    _cuda.check(_cuda.lib().smcpp_asc_div_check(
+        a.data_ptr(), b.data_ptr(), a.numel(), counts.data_ptr(), _stream(a.device)),
+        ASC_SWEEP.name)
+    return tuple(counts.tolist())
 
 
 def dsc_plan(S, L, n_keys, M):
@@ -558,18 +603,29 @@ def segment_ops_plain(T, E, keys, valid, precision, sum_dtype=None):
     return X.to(T.dtype), logs
 
 
-def asc_sweep_plain(T, E, keys, valid, A_in, precision):
+def asc_sweep_plain(T, E, keys, valid, A_in, precision, sum_dtype=None):
     """The ascending alpha sweep of stats_pass.  Returns (alphas (S, L, M)
-    in the carry dtype, alpha_end (S, M))."""
+    in the carry dtype, alpha_end (S, M)).
+
+    ``sum_dtype`` is the dtype in which each window's products a T are
+    summed before the sum is rounded to the compute dtype, as in
+    ``segment_ops_plain``: None sums in the compute dtype, as the reference
+    does (the CPU path); torch.float64 is K1's summation on the card (exact
+    products, f64 sums, one rounding; then the emission product and the
+    division by the row maximum in the compute dtype), the plain version the
+    kernel is held to."""
     S, L = keys.shape
     M = T.shape[0]
     dt = E.dtype
     cdt = carry_dtype(precision, dt)
     tiny = torch.finfo(dt).tiny
+    sdt = dt if sum_dtype is None else sum_dtype
+    Ts = T.to(sdt)
     a = A_in.to(dt)
     alphas = torch.empty((S, L, M), dtype=cdt, device=T.device)
     for l in range(L):
-        anew = E[keys[:, l]] * (a @ T)  # anew[s, i] = e[s, i] sum_j T[j, i] a[s, j]
+        # anew[s, i] = e[s, i] sum_j T[j, i] a[s, j]
+        anew = E[keys[:, l]] * (a.to(sdt) @ Ts).to(dt)
         anew = anew / torch.clamp(torch.amax(anew, 1, keepdim=True), min=tiny)
         a = torch.where(valid[:, l, None], anew, a)
         alphas[:, l] = a.to(cdt)

@@ -35,6 +35,16 @@ difference flips a bf16 rounding, 2^-8 relative, about once in 2^16 sums.)
 With f32 carries K3 also stays within rtol 1e-5 of the plain loop summed in
 f32, the reference's summation, over segments of a few hundred windows.
 Two launches are bit-identical.
+
+K1 likewise forms each window's products a T on the f64 tensor cores (16
+segments a warp, the segments as the tile's rows) and rounds each sum once
+to f32; its plain version is ``asc_sweep_plain(..., sum_dtype=torch.float64)``
+(``_k1_plain``), which it matches bit for bit in practice.  It is held to
+that plain version at rtol 1e-5 (alpha_end, the f32 stream) and one bf16 ulp
+(the bf16 stream at 'default'), the count of differing entries printed, and
+still to the default plain version (f32 sums, the reference's) at the same
+tolerances: K1's carry is f32 at every rung, so a flipped bf16 rounding of
+the stream never feeds back into the recursion.
 """
 
 import numpy as np
@@ -152,7 +162,7 @@ def test_sweeps_match_plain(dev, M, precision, rtol):
 
 def test_large_key_table_uses_extended_shared_memory(dev):
     """500 keys at M = 32 put every kernel's shared memory over the 48 KB
-    default, the opt-in path: K3 66 KB, K1 64 KB; K2's tables (192 KB) with
+    default, the opt-in path: K3 66 KB, K1 70 KB; K2's tables (192 KB) with
     its eight warps' f32 alpha buffers and u vectors (66 KB) pass a block's
     227 KB, so K2 takes the global-table route with 66 KB of shared memory.
     Tables past a block's shared memory: test_large_key_tables_match_plain."""
@@ -173,8 +183,8 @@ def test_large_key_table_uses_extended_shared_memory(dev):
 @pytest.mark.parametrize("precision,rtol", [("highest", 1e-5), ("default", 1e-3)])
 def test_large_key_tables_match_plain(dev, n_keys, M, precision, rtol):
     """Tables past a block's shared memory (K2 from 606 keys at M = 32, K1
-    and K3 from about 1800): every kernel reads its emission rows from
-    global memory and agrees with its plain version."""
+    from 1415, K3 from about 1800): every kernel reads its emission rows
+    from global memory and agrees with its plain version."""
     T, E, keys, valid, A_in, Q_end = _problem(6, 24, 96, M, n_keys, dev)
     _check_k3(T, E, keys, valid, precision, rtol)
     alphas, a_end = wk.asc_sweep_cuda(T, E, keys, valid, A_in, precision)
@@ -328,6 +338,127 @@ def test_unsupported_modes_raise_on_cuda(dev):
         _close(g, w, 1e-5, 1e-7)
     with pytest.raises(TypeError):
         wk.segment_ops_cuda(T.double(), E.double(), keys, valid, "highest")
+
+
+# --- K1: 16 segments per warp on the f64 tensor cores (window_kernels.cu) --
+
+def _k1_plain(T, E, keys, valid, A_in, precision):
+    "K1's plain version: the ascending sweep with f64 sums (module docstring)."
+    return wk.asc_sweep_plain(T, E, keys, valid, A_in, precision, sum_dtype=torch.float64)
+
+
+def _check_k1(T, E, keys, valid, A_in, precision):
+    """K1 against its plain version and the default plain version, at rtol
+    1e-5 (alpha_end, the f32 stream) or one bf16 ulp (the bf16 stream); two
+    launches bit-identical.  Prints the count of entries that differ from
+    the plain version's bits."""
+    before = wk.ASC_SWEEP.launches
+    alphas, a_end = wk.asc_sweep_cuda(T, E, keys, valid, A_in, precision)
+    alphas2, a_end2 = wk.asc_sweep_cuda(T, E, keys, valid, A_in, precision)
+    torch.cuda.synchronize()
+    assert wk.ASC_SWEEP.launches == before + 2
+    assert torch.equal(alphas, alphas2) and torch.equal(a_end, a_end2)
+    s_tol = BF16_ULP if precision == "default" else 1e-5
+    for plain in (_k1_plain, wk.asc_sweep_plain):
+        alphas_p, a_end_p = plain(T, E, keys, valid, A_in, precision)
+        assert alphas.dtype == alphas_p.dtype
+        _close(alphas, alphas_p, s_tol, 1e-7)
+        _close(a_end, a_end_p, 1e-5, 1e-7)
+        if plain is _k1_plain:
+            print(f"asc_sweep: {int((alphas != alphas_p).sum())} of {alphas.numel()} "
+                  f"stream entries and {int((a_end != a_end_p).sum())} of "
+                  f"{a_end.numel()} alpha_end entries differ from the plain version's bits")
+    return alphas, a_end
+
+
+@pytest.mark.parametrize("S,L", [(5, 200), (16, 200), (40, 200), (21, 203)])
+@pytest.mark.parametrize("M", MS)
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_asc_sweep_matches_f64_plain(dev, S, L, M, precision):
+    """A partial warp of segments (5), a full one (16), two and a half (40);
+    L = 200 is not a multiple of the 32-window chunk (the staged keys take
+    the unaligned route), and at L = 203 the stream's rows start at every
+    alignment."""
+    T, E, keys, valid, A_in, _ = _problem(40, S, L, M, 89, dev)
+    _check_k1(T, E, keys, valid, A_in, precision)
+
+
+@pytest.mark.parametrize("M", [16, 32])
+def test_asc_sweep_identity_T(dev, M):
+    """T = I: each step's quotients are e a / max(e a) of the carry itself.
+    Emissions over 2^-30 .. 1 drive entries far below their row's maximum,
+    past the range of the kernel's one-reciprocal quotient (where the step
+    divides with `/`), into subnormals and to zero; 48 segments leave no
+    row of a warp empty."""
+    rng = np.random.RandomState(46)
+    T = torch.eye(M, dtype=torch.float32, device=dev)
+    E = torch.as_tensor(np.exp2(-30 * rng.rand(64, M)), dtype=torch.float32, device=dev)
+    keys = torch.as_tensor(rng.randint(0, 64, (48, 512)).astype(np.int32), device=dev)
+    valid = torch.as_tensor(rng.rand(48, 512) < 0.95, device=dev)
+    A_in = torch.as_tensor(rng.rand(48, M), dtype=torch.float32, device=dev)
+    alphas, _ = _check_k1(T, E, keys, valid, A_in, "highest")
+    a = alphas[alphas > 0]
+    assert float(a.min()) < 2.0**-126 and int((alphas == 0).sum()) > 0
+
+
+def test_asc_division_is_ieee(dev):
+    """K1's quotients (one reciprocal per row, then one product corrected by
+    its exact residual per entry) equal IEEE division bit for bit over every
+    f32 significand of the divisor at five exponents, against dividends from
+    2^-90 b to b (log-uniform) and just below b: every pair in the kernel's
+    fast range agrees."""
+    mant = 1.0 + np.arange(1 << 23, dtype=np.float64) * 2.0**-23
+    rng = np.random.RandomState(47)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    for eb in (-40, -7, 0, 1, 99):
+        b = mant * 2.0**eb
+        for a in (b * np.exp2(-90 * rng.rand(b.size)), b * (1 - 2.0**-12 * rng.rand(b.size))):
+            checked, bad = wk.asc_div_check(f(a), f(b))
+            assert bad == 0 and checked >= b.size // 2
+
+
+@pytest.mark.parametrize("M", MS)
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_asc_sweep_long_segments(dev, M, precision):
+    """16 segments of 8192 windows (C3's L) with a near-identity T: 8192
+    dependent steps, each a chance for a rounding to drift or flip; L is a
+    multiple of 16, so the keys and flags are staged with cp.async."""
+    rng = np.random.RandomState(41)
+    T = rng.dirichlet(np.ones(M) * 40, size=M) + np.eye(M) * 50
+    T = torch.as_tensor(T / T.sum(1, keepdims=True), dtype=torch.float32, device=dev)
+    E = torch.as_tensor(rng.uniform(0.05, 1.0, (128, M)), dtype=torch.float32, device=dev)
+    keys = torch.as_tensor(rng.randint(0, 128, (16, 8192)).astype(np.int32), device=dev)
+    valid = rng.rand(16, 8192) < 0.95
+    valid[-1, 4096:] = False
+    A_in = torch.as_tensor(rng.rand(16, M), dtype=torch.float32, device=dev)
+    _check_k1(T, E, keys, torch.as_tensor(valid, device=dev), A_in, precision)
+
+
+@pytest.mark.parametrize("n_keys", [89, 1000, 2000])
+@pytest.mark.parametrize("M", [15, 16, 32])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_asc_sweep_table_routes(dev, n_keys, M, precision):
+    """The emission table in shared memory beside the staged keys, or past
+    a block's 227 KB (2000 keys at M = 32) in global memory; 37 segments
+    leave the last warp 5 rows; the grid has one block per warp."""
+    T, E, keys, valid, A_in, _ = _problem(42, 37, 96, M, n_keys, dev)
+    _check_k1(T, E, keys, valid, A_in, precision)
+    plan = wk.asc_sweep_plan(37, M, n_keys, precision == "default")
+    assert plan["warps_per_block"] * plan["blocks"] == 3
+    assert plan["shared_table"] == int(not (n_keys == 2000 and M == 32))
+    assert plan["spill_bytes"] == 0
+
+
+def test_asc_sweep_invalid_runs_across_chunks(dev):
+    """Runs of invalid windows over the 32-window chunk boundaries, whole
+    invalid segments, and rows of one warp with different valid flags."""
+    T, E, keys, valid, A_in, _ = _problem(43, 20, 256, 17, 89, dev)
+    valid[:, 20:70] = False
+    valid[::3, 180:] = False
+    valid[5] = False
+    valid[6, :100] = False
+    _, a_end = _check_k1(T, E, keys, valid, A_in, "default")
+    assert torch.equal(a_end[5], A_in[5])
 
 
 # --- K2 / K2g: the one-warp-per-segment body (csrc/dsc_kernels.cu) -------

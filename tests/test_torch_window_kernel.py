@@ -383,6 +383,113 @@ def test_k3_fragments_reuse_the_accumulator(MB):
             assert held == fed and len(held) == 4 * NN
 
 
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("M", [2, 15, 16, 17, 32])
+def test_asc_sweep_plain_f64_sums(M, precision):
+    """K1's plain version on the card, the ascending sweep with each
+    window's products a T summed in f64 and rounded once, against the
+    default plain version (f32 sums, the reference's): alpha_end and an f32
+    stream within rtol 1e-5, a bf16 stream within one bf16 ulp; and the
+    default plain version still against the JAX sweep."""
+    _, T, E, keys, valid, A_in, _ = map(
+        torch.as_tensor, _problem(9, 12, 256, M, 89, np.float32))
+    got = twk.asc_sweep_plain(T, E, keys, valid, A_in, precision, sum_dtype=torch.float64)
+    want = twk.asc_sweep_plain(T, E, keys, valid, A_in, precision)
+    assert got[0].dtype == want[0].dtype == twk.carry_dtype(precision, torch.float32)
+    assert got[1].dtype == torch.float32
+    _close(got[0], want[0].double(), 2.0**-7 if precision == "default" else 1e-5, 1e-8)
+    _close(got[1], want[1].double(), 1e-5, 1e-8)
+    ref = jwk.stats_pass(*map(jnp.asarray, (T.numpy(), E.numpy(), keys.numpy(),
+                                            valid.numpy(), A_in.numpy(), A_in.numpy())),
+                         None, precision=precision)
+    rtol, atol = BOUNDS[(precision, np.float32)]
+    _close(want[1], ref[0], rtol, atol)  # alpha_end
+
+
+def test_f64_sums_track_the_exact_sweep():
+    """Why K1 is held to the f32-summed sweep only where that sweep has not
+    drifted: with a near-identity T (a fit's, diagonal about 0.9998) the
+    f32-summed loop's rounding accumulates over 512 windows past rtol 1e-5
+    of the f64-summed loop (K1's summation), which stays several times
+    nearer the sweep computed in f64 throughout."""
+    rng = np.random.RandomState(1)
+    S, L, M, nk = 64, 512, 15, 26
+    T = rng.dirichlet(np.ones(M) * 40, size=M) + np.eye(M) * 5000
+    T = torch.as_tensor(T / T.sum(1, keepdims=True), dtype=torch.float32)
+    E = torch.as_tensor(rng.uniform(0.05, 1.0, (nk, M)), dtype=torch.float32)
+    keys = torch.as_tensor(rng.randint(0, nk, (S, L)).astype(np.int32))
+    valid = torch.as_tensor(rng.rand(S, L) < 0.95)
+    A_in = torch.as_tensor(rng.rand(S, M), dtype=torch.float32)
+    f32 = twk.asc_sweep_plain(T, E, keys, valid, A_in, "highest")
+    f64 = twk.asc_sweep_plain(T, E, keys, valid, A_in, "highest", sum_dtype=torch.float64)
+    exact = twk.asc_sweep_plain(T.double(), E.double(), keys, valid, A_in.double(), "highest")
+
+    def dist(x, ref):
+        return float(((x.double() - ref).abs() / (ref.abs() + 1e-7)).max())
+
+    for k in (0, 1):  # the stream, alpha_end
+        assert dist(f64[k], exact[k]) < dist(f32[k], exact[k]) / 2
+    assert dist(f64[1], f32[1].double()) > 1e-5
+
+
+def _k1_tile_maps(MB):
+    """K1's register maps (csrc/window_kernels.cu) for the m16n8k16 f64 tile,
+    per lane (g, t) of the warp that owns 16 segments (the tile's rows): the
+    (row s, column j) of the carry X each A register of k16-tile Q holds, the
+    (row j, column i) of T each B register of n-tile n holds, and the (row s,
+    column i) of Y = X T each accumulator register holds; with the tile's
+    physical positions (the PTX fragment layout) alongside."""
+    a, b, d = {}, {}, {}
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        jq = lambda q: 8 * (q >> 1) + 2 * t + (q & 1)  # noqa: E731
+        for Q in range(MB // 16):
+            for r in range(8):
+                a[Q, g + 8 * (r & 1), t + 4 * (r >> 1)] = (g + 8 * (r & 1), jq(4 * Q + (r >> 1)))
+            for n in range(MB // 8):
+                for r in range(4):
+                    b[Q, n, t + 4 * r, g] = (jq(4 * Q + r), 8 * n + g)
+        for n in range(MB // 8):
+            for r in range(4):
+                d[n, lane, r] = (g + 8 * (r >> 1), 2 * t + (r & 1),
+                                 g + 8 * (r >> 1), 8 * n + 2 * t + (r & 1))
+    return a, b, d
+
+
+@pytest.mark.parametrize("MB", [16, 32])
+def test_k1_fragments_reuse_the_accumulator(MB):
+    """K1's tiles, the rows read as 16 segments: every physical A and B
+    position is filled once, the tiles' products are Y = X T, the entries a
+    lane holds in its accumulator are exactly those it feeds the next step's
+    A (no shuffles), and lanes xor 1 and xor 2 (the row maximum's butterfly)
+    together hold every column of the lane's two rows."""
+    a, b, d = _k1_tile_maps(MB)
+    NQ, NN = MB // 16, MB // 8
+    assert len(a) == NQ * 16 * 16 and len(b) == NQ * NN * 16 * 8
+    rng = np.random.RandomState(25)
+    X, T = rng.rand(16, MB), rng.rand(MB, MB)
+    for n in range(NN):
+        D = np.zeros((16, 8))
+        for Q in range(NQ):
+            A = np.array([[X[a[Q, row, col]] for col in range(16)] for row in range(16)])
+            B = np.array([[T[b[Q, n, row, col]] for col in range(8)] for row in range(16)])
+            D += A @ B
+        for lane in range(32):
+            for r in range(4):
+                row, col, s, i = d[n, lane, r]
+                np.testing.assert_allclose(D[row, col], (X @ T)[s, i], rtol=1e-12)
+    held = {lane: {(s, i) for (n, ln, r), (_, _, s, i) in d.items() if ln == lane}
+            for lane in range(32)}
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        fed = {a[Q, g + 8 * (r & 1), t + 4 * (r >> 1)] for Q in range(NQ) for r in range(8)}
+        assert held[lane] == fed and len(fed) == 4 * NN
+        group = held[lane] | held[lane ^ 1] | held[lane ^ 2] | held[lane ^ 3]
+        butterfly = {ln for x in (lane, lane ^ 1) for ln in (x, x ^ 2)}
+        assert butterfly == {lane, lane ^ 1, lane ^ 2, lane ^ 3}
+        assert group == {(s, i) for s in (g, g + 8) for i in range(MB)}
+
+
 def test_check_key_range():
     twk.check_key_range(np.array([[0, 3], [19, 2]], np.int32), 20)
     twk.check_key_range(np.zeros((0, 8), np.int32), 1)
