@@ -13,8 +13,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    f32 at 'highest' and 'default'; K2g dsc_sweep_gamma, K4 viterbi_ops and K5
    viterbi_paths at S=64, L=512, M=2, 15, 16, 17 and 32, 89 keys; all six at
    M=32 with 1000 keys (emission tables past a block's shared memory); K6
-   boundary_scan and K7 viterbi_boundary on those K3 and K4 operators, laid
-   out as three contigs of uneven length, at M=2, 15, 16, 17 and 32;
+   boundary_scan (also against its chunked twin) and K7 viterbi_boundary on
+   those K3 and K4 operators, laid out as three contigs of uneven length,
+   at M=2, 15, 16, 17 and 32;
 4. the main path: simulate 2 contigs x 100 Mbp with n=20 (port's
    data/simulate.py, seeded), then ``smcpp_tpu_torch.commands.main estimate
    --em-iterations 2 --device cuda`` at the default knots, spline and w;
@@ -54,6 +55,17 @@ drifted past them, to lying nearer the all-f64 loop than it (``check_k1``);
 its launch plan (warps per block, blocks, registers) is printed, and the
 E-step's xisum and gsum from K1's stream are printed beside those from the
 f32-summed loop's (``k1_estep_agreement``).
+
+K6 is a chunked scan (f64 chunk products, an f64 scan over the chunks, an
+f32 finish of every chunk at once; ``boundary_plan`` sets its chunk length
+c and n_chunks).  On every input set (the small uneven contigs, the slice
+at both rungs, the posterior contig, C3) it is held to its chunked twin
+(``contig_boundaries_chunked_plain``, rtol 1e-6, ll 1e-9) and to the
+sequential f32 loop at rtol 1e-5 (ll 1e-6), or, where that loop has
+drifted past it, to lying nearer the all-f64 loop than it; two launches are
+bit-identical (``check_k6``).  Its plan, dependent depth (c + n_chunks + c
+steps, printed beside its bound) and the CUDA-event times of its setup and
+three phases are printed there too (``k6_phases``).
 
 Every kernel time is printed beside its bound: the least time the card
 could take for the same work on the same inputs, the larger of its
@@ -462,25 +474,128 @@ def compare_decode(tag, T, E, keys, valid, A_in, Q_end, entry, exit_, reps):
     return rec
 
 
+def _rel_dist(got, want):
+    "Largest |got - want| / (|want| + 1e-7), in f64."
+    got, want = got.double().reshape(-1), want.double().reshape(-1)
+    return float(((got - want).abs() / (want.abs() + 1e-7)).max())
+
+
+def check_k6(tag, pi, ops, logs, soc, seg_has):
+    """K6 on one input set at boundary_plan's chunk length: two launches
+    bit-identical; against its chunked twin (contig_boundaries_chunked_plain:
+    the vectors at rtol 1e-6 / atol 1e-8, ll at rtol 1e-9); against the
+    sequential f32 loop (contig_boundaries_plain: rtol 1e-5 / atol 1e-7, ll
+    1e-6), or, where that loop has drifted past those, K6 must lie no
+    farther than it from the all-f64 sequential loop (ll, A_in and Q_end
+    each); cvalid equal.  Logs the plan, the dependent depth and the
+    distances; raises on a miss.  Returns (max abs err of the vectors
+    against the sequential loop, that loop's outputs)."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    NS = np.asarray(soc).shape[1]
+    c, n_chunks = wk.boundary_plan(NS)
+    got = wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has)
+    again = wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"boundary_scan [{tag}]: two launches differ")
+    del again
+    twin = wk.contig_boundaries_chunked_plain(pi, ops, logs, soc, seg_has, c)
+    e_twin = max(check_close(f"boundary_scan [{tag}] {n} (chunked twin)", got[i],
+                             twin[i], 1e-6, 1e-8) for i, n in ((1, "A_in"), (2, "Q_end")))
+    check_close(f"boundary_scan [{tag}] ll (chunked twin)", got[0].reshape(1),
+                twin[0].reshape(1), 1e-9, 0.0)
+    check_equal(f"boundary_scan [{tag}] cvalid (chunked twin)", got[3], twin[3])
+    del twin
+    plain = wk.contig_boundaries_plain(pi, ops, logs, soc, seg_has)
+    check_equal(f"boundary_scan [{tag}] cvalid", got[3], plain[3])
+    err = max(float((got[i].double() - plain[i].double()).abs().max()) for i in (1, 2))
+    try:
+        for i, n in ((1, "A_in"), (2, "Q_end")):
+            check_close(f"boundary_scan [{tag}] {n}", got[i], plain[i], HIGHEST_RTOL, 1e-7)
+        check_close(f"boundary_scan [{tag}] ll", got[0].reshape(1),
+                    plain[0].reshape(1), 1e-6, 0.0)
+        vs = "within tolerance of the sequential f32 loop"
+    except AssertionError as miss:
+        exact = wk.contig_boundaries_plain(pi.double(), ops.double(), logs.double(),
+                                           soc, seg_has)
+        dist = {}
+        for i, n in ((0, "ll"), (1, "A_in"), (2, "Q_end")):
+            d = [_rel_dist(y[i], exact[i]) for y in (got, plain)]
+            dist[n] = d
+            if d[0] > d[1]:
+                raise AssertionError(
+                    f"boundary_scan [{tag}] {n}: {miss}; and K6 lies farther from the "
+                    f"f64 loop ({d[0]:.3e}) than the f32 loop ({d[1]:.3e})") from miss
+        vs = ("past tolerance of the sequential f32 loop, and nearer the f64 loop "
+              "(max relative distance, K6 / f32 loop: " + ", ".join(
+                  f"{n} {d[0]:.3e} / {d[1]:.3e}" for n, d in dist.items()) + ")")
+    depth = 2 * c + n_chunks if n_chunks > 1 else NS
+    log(f"boundary_scan [{tag}]: plan c = {c}, n_chunks = {n_chunks}, "
+        f"{np.asarray(soc).shape[0] * n_chunks} chunk rows, dependent depth {depth} "
+        f"steps (sequential: {NS}); two launches bit-identical; chunked twin max abs "
+        f"err {e_twin:.2e}; {vs}")
+    return err, plain
+
+
+def k6_phases(tag, pi, ops, logs, soc, seg_has, reps=20):
+    """CUDA-event milliseconds of each of K6's phases (BoundaryScan) on one
+    input set, mean of ``reps`` runs each after a warm-up: the wrapper's
+    setup (the chunk rows' copy to the card, cvalid, the zeroed outputs),
+    then the three launches (each reruns on the same inputs)."""
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    k6 = wk.BoundaryScan(pi, ops, logs, soc, seg_has)
+    t = {
+        "setup": cuda_ms(lambda: wk.BoundaryScan(pi, ops, logs, soc, seg_has), reps),
+        "chunk_products": cuda_ms(k6.products, reps),
+        "chunk_scan": cuda_ms(k6.chunk_scan, reps),
+        "finish": cuda_ms(k6.finish, reps),
+    }
+    log(f"K6 phases [{tag}] (c = {k6.chunk}, n_chunks = {k6.n_chunks}), ms: "
+        + ", ".join(f"{n} {v:.4f}" for n, v in t.items()))
+    return t
+
+
+def k6_alone(reps=20):
+    """K6 alone at the cells' contig layouts on random operators (the
+    posterior's 1 x 6104 at M = 32, the slice's 2 x 3907 at M = 15, C3's 22
+    x 306 at M = 16): ``check_k6``, ``k6_phases``, and the time of a call
+    at the plan's chunk length beside the sequential scan's (one chunk a
+    contig).  Not part of ``main``: a quick timing of K6 on the card."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    for tag, C, NS, M in [("posterior", 1, 6104, 32), ("slice", 2, 3907, 15),
+                          ("C3", 22, 306, 16)]:
+        rng = np.random.RandomState(SEED)
+        f = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa: E731
+        ops, logs = f(rng.uniform(0.01, 1.0, (C * NS, M, M))), f(rng.uniform(-40, -1, C * NS))
+        pi = f(rng.dirichlet(np.ones(M)))
+        soc = np.arange(C * NS).reshape(C, NS)
+        has = torch.ones(C * NS, dtype=torch.bool, device="cuda")
+        check_k6(tag, pi, ops, logs, soc, has)
+        k6_phases(tag, pi, ops, logs, soc, has, reps)
+        t = [cuda_ms(lambda: wk.boundary_scan_cuda(pi, ops, logs, soc, has, chunk=k), reps)
+             for k in (None, NS)]
+        log(f"K6 alone [{tag}, C x NS = {C} x {NS}, M = {M}]: {t[0]:.4f} ms a call at "
+            f"the plan's chunk length, {t[1]:.4f} ms as the sequential scan")
+
+
 def compare_boundary(tag, pi, ops, logs, soc, seg_has, W, reps):
-    """K6 against contig_boundaries_plain on the operators ``ops``, ``logs``
-    and K7 against viterbi_boundary_states_plain on ``W`` (skipped when W is
-    None), with the contig layout ``soc``; raises on a miss.  Returns
-    ({kernel name: (max abs err, kernel ms, plain ms, bound ms, bound by)},
-    the plain outputs (ll, A_in, Q_end, cvalid) and (entry, exit) or
-    None)."""
+    """K6 on the operators ``ops``, ``logs`` (``check_k6``, then its phase
+    times) and K7 against viterbi_boundary_states_plain on ``W`` (skipped
+    when W is None), with the contig layout ``soc``; raises on a miss.
+    Returns ({kernel name: (max abs err, kernel ms, plain ms, bound ms,
+    bound by)}, the sequential loop's outputs (ll, A_in, Q_end, cvalid) and
+    (entry, exit) or None)."""
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     S, M = ops.shape[0], ops.shape[-1]
-    ll, A_in, Q_end, cvalid = wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has)
-    plain = wk.contig_boundaries_plain(pi, ops, logs, soc, seg_has)
-    e6 = max(check_close(f"boundary_scan [{tag}] A_in", A_in, plain[1],
-                         HIGHEST_RTOL, 1e-7),
-             check_close(f"boundary_scan [{tag}] Q_end", Q_end, plain[2],
-                         HIGHEST_RTOL, 1e-7))
-    check_close(f"boundary_scan [{tag}] ll", ll.reshape(1), plain[0].reshape(1),
-                1e-6, 0.0)
-    check_equal(f"boundary_scan [{tag}] cvalid", cvalid, plain[3])
+    e6, plain = check_k6(tag, pi, ops, logs, soc, seg_has)
+    k6_phases(tag, pi, ops, logs, soc, seg_has)
     t6 = cuda_ms(lambda: wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has), reps)
     t6p = cuda_ms(lambda: wk.contig_boundaries_plain(pi, ops, logs, soc, seg_has), 1)
     rec = {"boundary_scan": (e6, t6, t6p, *scan_bound("boundary_scan", M, S, soc))}
@@ -494,9 +609,12 @@ def compare_boundary(tag, pi, ops, logs, soc, seg_has, W, reps):
         t7p = cuda_ms(lambda: wk.viterbi_boundary_states_plain(pi, W, soc), 1)
         rec["viterbi_boundary"] = (e7, t7, t7p,
                                    *scan_bound("viterbi_boundary", M, S, soc))
+    NS = np.asarray(soc).shape[1]
+    c, n_chunks = wk.boundary_plan(NS)
     log(f"[{tag}] C x NS = {np.asarray(soc).shape} ms kernel/plain/bound: "
         + " ".join(f"{n} {r[1]:.3f}/{r[2]:.1f}/{r[3]:.4f}" for n, r in rec.items())
-        + f"; max abs err {e6:.2e}")
+        + f"; K6 dependent depth {2 * c + n_chunks if n_chunks > 1 else NS} steps "
+        f"(c = {c}, n_chunks = {n_chunks}); max abs err {e6:.2e}")
     return rec, plain, states
 
 

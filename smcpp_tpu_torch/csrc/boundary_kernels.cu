@@ -1,7 +1,7 @@
 // Per-contig boundary scans for NVIDIA Hopper (sm_90a), bound through a
 // plain C interface (ctypes; see smcpp_tpu_torch/ops/_cuda.py).
 //
-//   K6 boundary_scan     replaces smcpp_tpu/ops/window_kernel.py:
+//   K6 boundary_scan     replaces smcpp_tpu/ops/window_kernel.py:358
 //                        contig_boundaries (the forward scan over the segment
 //                        operators, which is also contig_scan, and the
 //                        backward scan over their transposes)
@@ -9,37 +9,79 @@
 //                        viterbi_boundary_states (the max-plus forward scan
 //                        and its backtrace)
 //
-// What bounds them: serial depth.  A contig's NS segments are walked in
-// order, each step an M x M matvec (K6) or max-plus matvec (K7) behind one
-// warp reduction, so a launch takes NS dependent steps on any card; the
-// arithmetic (2 S M^2 operations) and the bytes (one read of the (S, M, M)
-// operators) are tiny beside that.
+// What bounds them: serial depth.  The arithmetic (2 S M^2 operations) and
+// the bytes (one read of the (S, M, M) operators) are tiny beside the chain
+// of dependent steps, each an M x M matvec (K6) or max-plus matvec (K7)
+// behind a warp reduction.  K7 walks a contig's NS segments in order, NS
+// dependent steps on any card.
 //
-// Design: one warp per (contig, direction) for K6, the forward and the
-// backward scan of a contig in the two warps of one block, at once; one
-// warp per contig for K7.  Lane i owns state i.  The next segment's operator
-// is copied with cp.async (4 B per lane and instruction, one row across the
-// lanes) into the warp's double buffer in shared memory while the current
-// step runs.  A buffer holds 32 rows at the odd row stride SP = MB + 1, so
-// lane i reading row i (K6's forward v_i = sum_j op[i][j] a_j, K7's max over
-// k) touches 32 different banks, and lane j reading column j (K6's backward
-// qn_j = sum_i op[i][j] q_i) reads consecutive words.  Rows and columns past
-// M stay zero.  The scanned vector is broadcast by __shfl_sync in the inner
-// loop; sums and maxima are butterflies.
+// K6 is a chunked scan, three launches (ops/window_kernel.py:BoundaryScan):
+// each contig's NS slots are cut into n_chunks chunk rows of c slots
+// (boundary_plan: c a power of two near sqrt(NS)), so the depth is c +
+// n_chunks + c steps in place of NS, and the grid is every chunk row in
+// place of one block per contig.  The recursion normalizes at every step
+// and every normalizer cancels, so a run of operators can be multiplied
+// first (smcpp_tpu/ops/hmm.py:_tree_reduce and _scan_chunks do the same for
+// the span kernel).
 //
-// Padded slots (seg_of_contig < 0, at a contig's tail) are the identity
-// (K7: the max-plus identity) with log scale 0, as in the plain versions.
-// Segments that no contig lists are not written: the wrappers zero the
-// outputs.
+//   1 chunk_products   one block per chunk row, four warps (MB / 4 past MB
+//                      = 16): the row's operators multiplied in genomic
+//                      order, Pi <- P_t Pi from Pi = I, in f64 (M^3 FMA a
+//                      step on the f64 CUDA cores; lane j of warp w owns
+//                      column j of Pi in at most four of its rows, so a
+//                      step reads Pi[k][j] once per k and a transposed f64
+//                      copy of the operator, converted once a step, as
+//                      double2 broadcasts), Pi in shared memory, scaled
+//                      after each step by the power of two that puts its
+//                      largest entry in [1, 2) (exact; the scale cancels
+//                      in phase 2); the f32 operators come through a
+//                      cp.async ring of P1_RING slots, the row's segment
+//                      ids are loaded up front.  Padded slots are skipped.
+//                      Writes Pi (rows, M, M) f64.
+//   2 chunk_scan       one warp per (contig, direction) over the contig's
+//                      n_chunks products, in f64: forward, record a as the
+//                      chunk's entry vector, a <- Pi a / sum; backward, in
+//                      reverse, record q as its exit vector, q <- Pi^T q /
+//                      max(max, DBL_MIN).  Products are staged P2_RING - 1
+//                      chunks ahead with cp.async (8 B a lane), the vector is
+//                      broadcast through shared memory.  Writes the start
+//                      vectors rounded to f32, (rows, M) each.
+//   3 finish           the sequential scan, per chunk row: warp 0 of block r
+//                      runs row r forward from its entry vector, warp 1
+//                      backward from its exit vector, in f32 as the plain
+//                      loop does.  Forward, per slot: record A_in[s] = a,
+//                      then v = op[s] a, csum = sum v, ll += f64(log csum +
+//                      logs[s]) (f32 add, then widened), a = v / csum.
+//                      Backward: record Q_end[s] = q, then qn = op[s]^T q, q
+//                      = qn / max(max qn, FLT_MIN).  Lane i owns state i; the
+//                      next slot's operator is copied with cp.async (4 B a
+//                      lane and instruction, one row across the lanes) into
+//                      the warp's double buffer while the current step runs;
+//                      a buffer holds 32 rows at the odd stride SP = MB + 1,
+//                      so the forward's row reads and the backward's column
+//                      reads are free of bank conflicts.  Each row's ll
+//                      partial (masked by its contig's cvalid) goes to its
+//                      own f64 slot; the wrapper sums them with one
+//                      torch.sum.  With n_chunks == 1 phases 1-2 are skipped
+//                      and phase 3 starts from pi and ones: the sequential
+//                      scan of one warp per (contig, direction).
+//
+// Padded slots (segment id < 0, at a contig's tail or past it in its last
+// chunk row) are the identity (K7: the max-plus identity) with log scale 0,
+// as in the plain versions.  Segments that no contig lists are not written:
+// the wrappers zero the outputs.  No atomics: two launches are
+// bit-identical.
 //
 // K7 is exact: f32 adds and maxima, as in the plain version, and the
 // backpointer is the first maximizing entry state (torch.max's tie rule), so
-// it reproduces viterbi_boundary_states_plain bit for bit.  Its backtrace
-// reads the (C, NS, M) int8 backpointers eight rows at a time, one byte per
-// lane, and follows the state with a shuffle, so the dependent chain is a
-// shuffle and not a load.
+// it reproduces viterbi_boundary_states_plain bit for bit.  One warp per
+// contig; its backtrace reads the (C, NS, M) int8 backpointers eight rows at
+// a time, one byte per lane, and follows the state with a shuffle, so the
+// dependent chain is a shuffle and not a load.
 
 #include "common.cuh"
+
+#include <float.h>
 
 using namespace smcpp;
 
@@ -47,6 +89,10 @@ namespace {
 
 constexpr int ROWS = 32;     // rows of a staged operator: one per lane
 constexpr int TRACE_ROWS = 8;  // backpointer rows loaded at once by K7's backtrace
+// phase 1: warps per chunk row, each owning MB / warps rows of Pi (at most 4)
+__host__ __device__ constexpr int p1_warps(int MB) { return MB > 16 ? MB / 4 : 4; }
+constexpr int P1_RING = 4;       // phase 1: operator slots in flight
+constexpr int P2_RING = 4;       // phase 2: chunk products in flight
 
 // Start copying segment s's (M, M) operator into a buffer of ROWS x SP
 // floats, as one cp.async group.  A padded slot (s < 0) copies nothing and
@@ -62,46 +108,214 @@ __device__ __forceinline__ void stage(float* buf, const float* __restrict__ ops,
 }
 
 // ---------------------------------------------------------------------------
-// K6: warp 0 of block c runs contig c's forward scan, warp 1 its backward
-// scan.  Forward, per slot: record A_in[s] = a, then v = op[s] a, csum =
-// sum v, ll += f64(log csum + logs[s]) (f32 add, then widened), a = v /
-// csum; a starts at pi.  Backward, in reverse: record Q_end[s] = q, then
-// qn = op[s]^T q, q = qn / max(max qn, FLT_MIN); q starts at ones.
+// K6 phase 1: block r forms chunk row r's product Pi = P_{c-1} ... P_0 in
+// f64, rescaled by a power of two after every step.  Each staged f32
+// operator is converted once into an f64 copy laid out [k][i] (transposed)
+// at row stride OS = MB + 2 (16-byte rows, and the conversion's column
+// stores 2-way rather than 32-way bank conflicts); then lane j of warp w
+// owns column j of Pi in rows w RPW .. w RPW + RPW - 1, so a step reads
+// Pi[k][j] once per k and the copy's column k of those rows as double2
+// broadcasts.  Rows and columns past M stay zero in Pi and in the copy.
 // ---------------------------------------------------------------------------
 template <int MB>
-__global__ void __launch_bounds__(64) boundary_scan_kernel(
+__global__ void __launch_bounds__(32 * p1_warps(MB)) chunk_products_kernel(
+    const float* __restrict__ ops, const int32_t* __restrict__ rows, int c, int M,
+    double* __restrict__ prod) {
+  constexpr int NW = p1_warps(MB);
+  constexpr int RPW = MB / NW;  // rows of Pi per warp: 1 .. 4
+  constexpr int NT = 32 * NW;
+  constexpr int NE = (MB * MB + NT - 1) / NT;  // operator entries per thread
+  constexpr int OS = MB + 2;                   // row stride of the f64 copy
+  extern __shared__ double smem_d[];
+  double* P = smem_d;                           // Pi, MB x MB, row stride MB
+  double* opT = P + MB * MB;                    // the step's operator, f64, [k][i]
+  float* ring = (float*)(opT + MB * OS);        // P1_RING operators, f32, as stored
+  int* ids = (int*)(ring + P1_RING * MB * MB);  // the row's c segment ids
+  __shared__ double wmax[NW];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int MM = M * M;
+  const int j = lane < MB ? lane : MB - 1;  // lanes past MB repeat a column, unused
+  const int i0 = warp * RPW;
+  // the thread's operator entries e = tid + NT q and their places in opT
+  int tr[NE];
+#pragma unroll
+  for (int q = 0; q < NE; ++q) {
+    const int e = tid + NT * q, i = e / M;
+    tr[q] = e < MM ? (e - i * M) * OS + i : -1;
+  }
+  const int32_t* rs = rows + (size_t)blockIdx.x * c;
+  for (int t = tid; t < c; t += NT) ids[t] = rs[t];
+  for (int e = tid; e < MB * MB; e += NT) {
+    const int i = e / MB;
+    P[e] = (i == e - i * MB && i < M) ? 1.0 : 0.0;
+  }
+  for (int e = tid; e < MB * OS; e += NT) opT[e] = 0.0;
+  __syncthreads();
+
+  auto stage1 = [&](int t) {
+    if (t < c && ids[t] >= 0) {
+      const float* src = ops + (size_t)ids[t] * MM;
+      float* dst = ring + (t % P1_RING) * MB * MB;
+#pragma unroll
+      for (int q = 0; q < NE; ++q)
+        if (tr[q] >= 0) cp_async4(dst + tid + NT * q, src + tid + NT * q);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < P1_RING - 1; ++t) stage1(t);
+  for (int t = 0; t < c; ++t) {
+    stage1(t + P1_RING - 1);
+    cp_async_wait<P1_RING - 1>();
+    if (ids[t] >= 0) {  // block-uniform
+      const float* op = ring + (t % P1_RING) * MB * MB;
+#pragma unroll
+      for (int q = 0; q < NE; ++q)
+        if (tr[q] >= 0) opT[tr[q]] = (double)op[tid + NT * q];  // this thread's own copies
+      __syncthreads();  // opT is whole
+      double acc[RPW];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) acc[r] = 0.0;
+#pragma unroll
+      for (int k = 0; k < MB; ++k) {
+        const double pk = P[k * MB + j];
+        const double* o = opT + k * OS + i0;
+        if constexpr (RPW % 2 == 0) {
+#pragma unroll
+          for (int r = 0; r < RPW; r += 2) {
+            const double2 v = *reinterpret_cast<const double2*>(o + r);
+            acc[r] = fma(v.x, pk, acc[r]);
+            acc[r + 1] = fma(v.y, pk, acc[r + 1]);
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < RPW; ++r) acc[r] = fma(o[r], pk, acc[r]);
+        }
+      }
+      double mx = 0.0;
+#pragma unroll
+      for (int r = 0; r < RPW; ++r)
+        if (lane < M && i0 + r < M) mx = fmax(mx, fabs(acc[r]));
+      mx = warp_max(mx);
+      if (lane == 0) wmax[warp] = mx;
+      __syncthreads();  // every thread has read Pi and opT and posted its maximum
+#pragma unroll
+      for (int w = 0; w < NW; ++w) mx = fmax(mx, wmax[w]);
+      int ex;
+      frexp(mx, &ex);  // mx = f 2^ex, f in [0.5, 1): scaled, it lies in [1, 2)
+      const double scale = ldexp(1.0, 1 - ex);
+#pragma unroll
+      for (int r = 0; r < RPW; ++r)
+        if (lane < M && i0 + r < M) P[(i0 + r) * MB + lane] = acc[r] * scale;
+    }
+    __syncthreads();  // Pi is written and slot t is free before it is refilled
+  }
+  double* out = prod + (size_t)blockIdx.x * MM;
+  for (int e = tid; e < MM; e += NT) {
+    const int i = e / M;
+    out[e] = P[i * MB + e - i * M];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6 phase 2: block (contig, direction) of one warp scans the contig's
+// n_chunks products in f64 and writes each chunk's start vector in f32.
+// ---------------------------------------------------------------------------
+template <int MB>
+__global__ void __launch_bounds__(32) chunk_scan_kernel(
+    const double* __restrict__ prod, const float* __restrict__ pi, int n_chunks, int M,
+    float* __restrict__ start_a, float* __restrict__ start_q) {
+  constexpr int SP = MB + 1;  // odd row stride: row reads are free of bank conflicts
+  constexpr int BUF = ROWS * SP;  // every lane reads a row; rows past M stay zero
+  extern __shared__ double smem_d[];
+  double* ring = smem_d;             // P2_RING products
+  double* xs = ring + P2_RING * BUF;  // the scanned vector, for broadcast
+  const int lane = threadIdx.x;
+  const bool fwd = blockIdx.y == 0;
+  const bool live = lane < M;
+  for (int idx = lane; idx < P2_RING * BUF; idx += 32) ring[idx] = 0.0;
+  __syncwarp();
+
+  const size_t base = (size_t)blockIdx.x * n_chunks;
+  float* out = fwd ? start_a : start_q;
+  auto chunk = [&](int n) { return base + (fwd ? n : n_chunks - 1 - n); };
+  auto stage2 = [&](int n) {
+    if (n < n_chunks && live) {
+      const double* src = prod + chunk(n) * M * M + lane;
+      double* dst = ring + (n % P2_RING) * BUF + lane;
+      for (int i = 0; i < M; ++i) cp_async8(dst + i * SP, src + (size_t)i * M);
+    }
+    cp_async_commit();
+  };
+  double x = live ? (fwd ? (double)pi[lane] : 1.0) : 0.0;  // a or q
+  for (int n = 0; n < P2_RING - 1; ++n) stage2(n);
+  for (int n = 0; n < n_chunks; ++n) {
+    stage2(n + P2_RING - 1);
+    cp_async_wait<P2_RING - 1>();
+    if (live) out[chunk(n) * M + lane] = (float)x;
+    xs[lane] = x;
+    __syncwarp();
+    const double* p = ring + (n % P2_RING) * BUF;
+    double acc0 = 0.0, acc1 = 0.0;  // two chains halve the dependent FMAs
+    if (fwd) {
+#pragma unroll
+      for (int j = 0; j < MB; j += 2) {
+        acc0 = fma(p[lane * SP + j], xs[j], acc0);
+        acc1 = fma(p[lane * SP + j + 1], xs[j + 1], acc1);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < MB; i += 2) {
+        acc0 = fma(p[i * SP + lane], xs[i], acc0);
+        acc1 = fma(p[(i + 1) * SP + lane], xs[i + 1], acc1);
+      }
+    }
+    const double y = live ? acc0 + acc1 : 0.0;
+    x = fwd ? y / warp_sum(y) : y / fmax(warp_max(y), DBL_MIN);
+    __syncwarp();  // every lane is done with the product and xs before refills
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6 phase 3: warp 0 of block r runs chunk row r forward from start_a[r],
+// warp 1 backward from start_q[r] (the header's step), and the forward
+// writes the row's ll partial, masked by cvalid of contig r / n_chunks.
+// ---------------------------------------------------------------------------
+template <int MB>
+__global__ void __launch_bounds__(64) boundary_finish_kernel(
     const float* __restrict__ ops, const float* __restrict__ logs,
-    const float* __restrict__ pi, const int32_t* __restrict__ soc,
-    const uint8_t* __restrict__ cvalid, int NS, int M, double* __restrict__ ll,
-    float* __restrict__ A_in, float* __restrict__ Q_end) {
+    const int32_t* __restrict__ rows, const uint8_t* __restrict__ cvalid,
+    const float* __restrict__ start_a, const float* __restrict__ start_q, int c,
+    int n_chunks, int M, double* __restrict__ ll, float* __restrict__ A_in,
+    float* __restrict__ Q_end) {
   constexpr int SP = MB + 1;
   constexpr int BUF = ROWS * SP;
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const bool fwd = warp == 0;
-  const int c = blockIdx.x;
+  const int r = blockIdx.x;
   float* buf = smem + warp * 2 * BUF;
   for (int idx = lane; idx < 2 * BUF; idx += 32) buf[idx] = 0.f;
   __syncwarp();
 
-  const int32_t* sc = soc + (size_t)c * NS;
+  const int32_t* sc = rows + (size_t)r * c;
   const bool live = lane < M;
-  const bool cv = cvalid[c] != 0;
+  const bool cv = cvalid[r / n_chunks] != 0;
   float* out = fwd ? A_in : Q_end;
-  // the slot of step n: forward n, backward NS - 1 - n
-  auto slot = [&](int n) { return fwd ? n : NS - 1 - n; };
-  float x = live ? (fwd ? pi[lane] : 1.f) : 0.f;  // a (forward) or q (backward)
+  // the slot of step n: forward n, backward c - 1 - n
+  auto slot = [&](int n) { return fwd ? n : c - 1 - n; };
+  float x = live ? (fwd ? start_a : start_q)[(size_t)r * M + lane] : 0.f;  // a or q
   double llc = 0.0;
   int s = sc[slot(0)];
-  int s_next = NS > 1 ? sc[slot(1)] : -1;
+  int s_next = c > 1 ? sc[slot(1)] : -1;
   float lg = (fwd && s >= 0) ? logs[s] : 0.f;
   stage<SP>(buf, ops, s, M, lane);
-  for (int n = 0; n < NS; ++n) {
+  for (int n = 0; n < c; ++n) {
     const float* cur = buf + (n & 1) * BUF;
     // the next step's slot id and log scale, and the operator after it,
     // are fetched a step ahead
-    const int s_after = n + 2 < NS ? sc[slot(n + 2)] : -1;
+    const int s_after = n + 2 < c ? sc[slot(n + 2)] : -1;
     const float lg_next = (fwd && s_next >= 0) ? logs[s_next] : 0.f;
     stage<SP>(buf + ((n + 1) & 1) * BUF, ops, s_next, M, lane);
     cp_async_wait<1>();
@@ -133,7 +347,7 @@ __global__ void __launch_bounds__(64) boundary_scan_kernel(
     s_next = s_after;
     lg = lg_next;
   }
-  if (fwd && lane == 0) ll[c] = llc;
+  if (fwd && lane == 0) ll[r] = llc;
 }
 
 // ---------------------------------------------------------------------------
@@ -223,18 +437,54 @@ __global__ void __launch_bounds__(32) viterbi_boundary_kernel(
 
 extern "C" {
 
-// ops (S, M, M), logs (S,), pi (M,) f32; soc (C, NS) int32; cvalid (C,)
-// uint8.  Writes ll (C,) f64 and the listed rows of A_in, Q_end (S, M) f32.
-int smcpp_boundary_scan(const float* ops, const float* logs, const float* pi,
-                        const int32_t* soc, const uint8_t* cvalid, int C, int NS,
-                        int M, double* ll, float* A_in, float* Q_end, void* stream) {
-  if (M < 2 || M > 32 || C <= 0 || NS <= 0) return (int)cudaErrorInvalidValue;
+// K6 phase 1.  ops (S, M, M) f32; rows (R, c) int32 segment ids (-1:
+// padded).  Writes prod (R, M, M) f64.
+int smcpp_boundary_products(const float* ops, const int32_t* rows, int R, int c, int M,
+                            double* prod, void* stream) {
+  if (M < 2 || M > 32 || R <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  const int MBV = padded(M);
+  cudaStream_t st = (cudaStream_t)stream;
+  SMCPP_DISPATCH(MBV, {
+    const size_t smem = sizeof(double) * MB_ * (2 * MB_ + 2) +
+                        sizeof(float) * P1_RING * MB_ * MB_ + sizeof(int) * (size_t)c;
+    const int e = prepare(chunk_products_kernel<MB_>, smem);  // a long forced chunk
+    if (e) return e;
+    chunk_products_kernel<MB_><<<R, 32 * p1_warps(MB_), smem, st>>>(ops, rows, c, M, prod);
+  });
+  return (int)cudaGetLastError();
+}
+
+// K6 phase 2.  prod (C n_chunks, M, M) f64; pi (M,) f32.  Writes start_a,
+// start_q (C n_chunks, M) f32.
+int smcpp_boundary_chunk_scan(const double* prod, const float* pi, int C, int n_chunks,
+                              int M, float* start_a, float* start_q, void* stream) {
+  if (M < 2 || M > 32 || C <= 0 || n_chunks <= 0) return (int)cudaErrorInvalidValue;
+  const int MBV = padded(M);
+  cudaStream_t st = (cudaStream_t)stream;
+  SMCPP_DISPATCH(MBV, {
+    const size_t smem = sizeof(double) * (P2_RING * ROWS * (MB_ + 1) + 32);
+    chunk_scan_kernel<MB_><<<dim3(C, 2), 32, smem, st>>>(prod, pi, n_chunks, M, start_a,
+                                                        start_q);
+  });
+  return (int)cudaGetLastError();
+}
+
+// K6 phase 3.  ops (S, M, M), logs (S,) f32; rows (R, c) int32; cvalid
+// (R / n_chunks,) uint8; start_a, start_q (R, M) f32.  Writes ll (R,) f64
+// and the listed rows of A_in, Q_end (S, M) f32.
+int smcpp_boundary_finish(const float* ops, const float* logs, const int32_t* rows,
+                          const uint8_t* cvalid, const float* start_a,
+                          const float* start_q, int R, int c, int n_chunks, int M,
+                          double* ll, float* A_in, float* Q_end, void* stream) {
+  if (M < 2 || M > 32 || R <= 0 || c <= 0 || n_chunks <= 0 || R % n_chunks)
+    return (int)cudaErrorInvalidValue;
   const int MBV = padded(M);
   const size_t smem = sizeof(float) * 2 * 2 * ROWS * (size_t)(MBV + 1);
   cudaStream_t st = (cudaStream_t)stream;
   SMCPP_DISPATCH(MBV, {
-    boundary_scan_kernel<MB_><<<C, 64, smem, st>>>(ops, logs, pi, soc, cvalid, NS, M, ll,
-                                                   A_in, Q_end);
+    boundary_finish_kernel<MB_><<<R, 64, smem, st>>>(ops, logs, rows, cvalid, start_a,
+                                                     start_q, c, n_chunks, M, ll, A_in,
+                                                     Q_end);
   });
   return (int)cudaGetLastError();
 }

@@ -62,6 +62,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ double warp_max(double x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmax(x, __shfl_xor_sync(FULL, x, o));
+  return x;
+}
+
+__device__ __forceinline__ double warp_sum(double x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
+}
+
 // One entry of an emission table: shared memory (SMEM_E) or global memory
 // through the read-only cache.
 template <bool SMEM_E>
@@ -73,11 +85,16 @@ __device__ __forceinline__ float table(const float* t, int idx) {
   }
 }
 
-// Asynchronous copies from global to shared memory (cp.async): 16 or 4
+// Asynchronous copies from global to shared memory (cp.async): 16, 8 or 4
 // bytes per lane and instruction, grouped by commit and awaited by group.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {

@@ -51,7 +51,11 @@ _SIGNATURES = {
         ],
     },
     "boundary_kernels.cu": {
-        "smcpp_boundary_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "smcpp_boundary_products": [_P, _P, _I, _I, _I, _P, _P],
+        "smcpp_boundary_chunk_scan": [_P, _P, _I, _I, _I, _P, _P, _P],
+        "smcpp_boundary_finish": [
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+        ],
         "smcpp_viterbi_boundary": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     },
 }

@@ -9,9 +9,10 @@ decompressed to unit windows and cut into S segments of L windows
 
   pass 1   ``segment_operators``: per-segment transfer operators, one
            X <- diag(e) T^T X step per window (kernel K3);
-           ``contig_boundaries``: tiny per-contig scans over the (S, M, M)
-           operators give each segment's boundary alpha / beta vectors
-           (K6);
+           ``contig_boundaries``: per-contig forward and backward scans
+           over the (S, M, M) operators give each segment's boundary alpha
+           / beta vectors (K6, which replaces the JAX package's
+           window_kernel.py:358);
   pass 2   ``stats_pass``: an ascending alpha sweep storing the per-window
            alpha stream (K1), then a descending beta sweep reading it and
            accumulating xisum and the per-key posterior masses (K2), or,
@@ -24,8 +25,15 @@ operators (K4), a per-contig scan over them for the boundary states and its
 backtrace (K7), then each segment's interior path from its entry state
 (K5).
 
-Each of K1-K5 is a serial loop over the windows of a segment, and K6 and K7
-serial loops over the segments of a contig.  On a CUDA tensor they run as
+Each of K1-K5 is a serial loop over the windows of a segment, and K7 a
+serial loop over the segments of a contig.  K6 is a chunked scan in three
+launches (``BoundaryScan``): each contig's segments are cut into chunks of
+c (``boundary_plan``), every chunk's operator product is formed at once in
+f64 (phase 1), a short f64 scan over each contig's chunk products gives
+every chunk's entry and exit vectors (phase 2), and every chunk is then
+walked at once in f32 from those vectors (phase 3), so its depth is c +
+n_chunks + c steps in place of the contig's length; its plain twin is
+``contig_boundaries_chunked_plain``.  On a CUDA tensor they run as
 the hand-written kernels in csrc/*.cu; on a CPU tensor they run as the
 plain PyTorch loops in this module (the same arithmetic, f32 or f64).  A
 CUDA tensor never falls back to the plain version: the wrapper launches its
@@ -476,7 +484,7 @@ def viterbi_paths_cuda(T, E, keys, valid, seg_entry, seg_exit):
 
 def _check_boundary_inputs(ops, seg_of_contig):
     """Validate the segment operators and the contig table the per-contig
-    scans (K6, K7) take; returns (soc (C, NS) int32 on ops's device, M)."""
+    scans (K6, K7) take; returns (the table as int32 (C, NS) numpy, M)."""
     if ops.dtype != torch.float32:
         raise TypeError(f"the boundary kernels take float32 operators (got {ops.dtype})")
     S, M = ops.shape[0], ops.shape[-1]
@@ -489,46 +497,138 @@ def _check_boundary_inputs(ops, seg_of_contig):
     socn = np.asarray(seg_of_contig)
     if socn.ndim != 2 or socn.size == 0 or int(socn.max()) >= S:
         raise ValueError(f"seg_of_contig must be (C, NS) segment ids below {S}")
-    return torch.as_tensor(socn.astype(np.int32), device=ops.device), M
+    return socn.astype(np.int32), M
 
 
-def boundary_scan_cuda(pi, ops, logs, seg_of_contig, seg_has):
-    """K6 (replaces window_kernel.py:contig_boundaries).
+# K6's chunk length: a power of two near sqrt(NS), within these bounds.
+BOUNDARY_CHUNK_MIN, BOUNDARY_CHUNK_MAX = 8, 128
 
-    What bounds it: serial depth, NS dependent steps per contig and
-    direction, each an M x M matvec behind one warp reduction; the work (2 S
-    M^2 FMAs, one read of the operators) is tiny.  Design
-    (csrc/boundary_kernels.cu): one warp per (contig, direction), both
-    directions at once; lane i owns state i; the next segment's operator is
-    copied with cp.async into a per-warp double buffer in shared memory
-    (odd row stride, so the forward's row reads and the backward's column
-    reads are free of bank conflicts) while the current one runs; alpha or
-    q is broadcast by shuffle; the sum and the max are butterflies; each
-    contig's log-likelihood is summed in f64 in lane 0, in segment order.
-    cvalid is computed here with vectorized torch ops.  Returns the plain
-    version's (ll f64 scalar, A_in (S, M), Q_end (S, M), cvalid (C,))."""
-    soc, M = _check_boundary_inputs(ops, seg_of_contig)
-    C, NS = soc.shape
-    S = ops.shape[0]
-    dev = ops.device
-    if logs.dtype != torch.float32 or tuple(logs.shape) != (S,):
-        raise ValueError(f"logs must be float32 ({S},)")
-    cvalid = torch.any(seg_has[soc.clamp(min=0).long()] & (soc >= 0), 1)
-    pi32 = pi.to(device=dev, dtype=torch.float32).contiguous()
-    ll = torch.empty((C,), dtype=torch.float64, device=dev)
-    A_in = torch.zeros((S, M), dtype=torch.float32, device=dev)
-    Q_end = torch.zeros((S, M), dtype=torch.float32, device=dev)
-    lib = _cuda.lib()
+
+def boundary_plan(NS):
+    """K6's chunking of a contig table with NS slots a contig: (c,
+    n_chunks), c a power of two near sqrt(NS) (the nearer of the two
+    around it in log scale), clamped to [BOUNDARY_CHUNK_MIN,
+    BOUNDARY_CHUNK_MAX], and n_chunks = ceil(NS / c).  The dependent depth
+    of a launch is c + n_chunks + c steps; with n_chunks == 1 it is NS."""
+    c = 1 << max(0, int(np.floor(0.5 * np.log2(max(NS, 1)) + 0.5)))
+    c = min(max(c, BOUNDARY_CHUNK_MIN), BOUNDARY_CHUNK_MAX)
+    return c, -(-NS // c)
+
+
+def _chunk_rows(socn, chunk):
+    """The contig table (C, NS) padded with -1 to (C, n_chunks chunk) and
+    viewed as (C n_chunks, chunk) chunk rows, in the table's dtype; returns
+    (rows, n_chunks)."""
+    C, NS = socn.shape
+    n_chunks = -(-NS // chunk)
+    rows = np.full((C, n_chunks * chunk), -1, socn.dtype)
+    rows[:, :NS] = socn
+    return rows.reshape(C * n_chunks, chunk), n_chunks
+
+
+class BoundaryScan:
+    """One launch of K6 (replaces the JAX package's window_kernel.py:358,
+    contig_boundaries), phase by phase: construct it, then call
+    ``products()``, ``chunk_scan()`` and ``finish()`` in order on the
+    current stream (``boundary_scan_cuda`` does; the phases are separate so
+    that each can be timed).
+
+    What bounds it: serial depth.  The work (2 S M^2 FMAs, one read of the
+    operators) is tiny; a sequential scan takes NS dependent steps per
+    contig, each an M x M matvec behind a warp reduction.  Design
+    (csrc/boundary_kernels.cu): the contig table is cut into chunk rows of c
+    slots (``boundary_plan``, or ``chunk``), so the depth is c + n_chunks +
+    c steps and every phase runs all chunk rows at once:
+
+      products()    phase 1, one block per chunk row: the row's operator
+                    product in f64, rescaled by a power of two after every
+                    step;
+      chunk_scan()  phase 2, one warp per (contig, direction): the f64 scan
+                    over the contig's chunk products, writing every chunk's
+                    entry (forward) and exit (backward) vector in f32;
+      finish()      phase 3, two warps per chunk row: the sequential f32
+                    scan of each row from its start vectors, writing A_in,
+                    Q_end and each row's f64 log-likelihood partial, summed
+                    here with one torch.sum (a fixed order: two launches
+                    are bit-identical).
+
+    With n_chunks == 1 phases 1-2 do nothing and phase 3 starts from pi and
+    ones: the sequential scan.  The device copy of the chunk rows is made
+    from pinned memory without a host sync; cvalid is computed with torch
+    ops.  Every phase checks its launch and raises on failure."""
+
+    def __init__(self, pi, ops, logs, seg_of_contig, seg_has, chunk=None):
+        socn, M = _check_boundary_inputs(ops, seg_of_contig)
+        C, NS = socn.shape
+        S = ops.shape[0]
+        dev = ops.device
+        if logs.dtype != torch.float32 or tuple(logs.shape) != (S,):
+            raise ValueError(f"logs must be float32 ({S},)")
+        if chunk is None:
+            chunk = boundary_plan(NS)[0]
+        elif chunk < 1:
+            raise ValueError(f"chunk must be at least 1, got {chunk}")
+        rows, n_chunks = _chunk_rows(socn, chunk)
+        self.chunk, self.n_chunks, self.M, self.C = chunk, n_chunks, M, C
+        self.ops, self.logs = ops, logs.contiguous()
+        self.rows = torch.from_numpy(rows).pin_memory().to(dev, non_blocking=True)
+        soc = self.rows.view(C, -1)
+        self.cvalid = torch.any(seg_has[soc.clamp(min=0).long()] & (soc >= 0), 1)
+        self.pi = pi.to(device=dev, dtype=torch.float32).contiguous()
+        R = C * n_chunks
+        self.ll = torch.empty((R,), dtype=torch.float64, device=dev)
+        self.A_in = torch.zeros((S, M), dtype=torch.float32, device=dev)
+        self.Q_end = torch.zeros((S, M), dtype=torch.float32, device=dev)
+        if n_chunks > 1:
+            self.prod = torch.empty((R, M, M), dtype=torch.float64, device=dev)
+            self.start_a = torch.empty((R, M), dtype=torch.float32, device=dev)
+            self.start_q = torch.empty((R, M), dtype=torch.float32, device=dev)
+        else:
+            self.start_a = self.pi.expand(C, M).contiguous()
+            self.start_q = torch.ones((C, M), dtype=torch.float32, device=dev)
+        self._stream = _stream(dev)
+        self._lib = _cuda.lib()
+
+    def products(self):
+        "Phase 1 (skipped with one chunk a contig)."
+        if self.n_chunks > 1:
+            _cuda.check(self._lib.smcpp_boundary_products(
+                self.ops.data_ptr(), self.rows.data_ptr(), self.rows.shape[0],
+                self.chunk, self.M, self.prod.data_ptr(), self._stream,
+            ), BOUNDARY_SCAN.name)
+
+    def chunk_scan(self):
+        "Phase 2 (skipped with one chunk a contig)."
+        if self.n_chunks > 1:
+            _cuda.check(self._lib.smcpp_boundary_chunk_scan(
+                self.prod.data_ptr(), self.pi.data_ptr(), self.C, self.n_chunks,
+                self.M, self.start_a.data_ptr(), self.start_q.data_ptr(),
+                self._stream,
+            ), BOUNDARY_SCAN.name)
+
+    def finish(self):
+        """Phase 3; returns (ll f64 scalar, A_in (S, M), Q_end (S, M),
+        cvalid (C,))."""
+        _cuda.check(self._lib.smcpp_boundary_finish(
+            self.ops.data_ptr(), self.logs.data_ptr(), self.rows.data_ptr(),
+            self.cvalid.data_ptr(), self.start_a.data_ptr(),
+            self.start_q.data_ptr(), self.rows.shape[0], self.chunk,
+            self.n_chunks, self.M, self.ll.data_ptr(), self.A_in.data_ptr(),
+            self.Q_end.data_ptr(), self._stream,
+        ), BOUNDARY_SCAN.name)
+        return torch.sum(self.ll), self.A_in, self.Q_end, self.cvalid
+
+
+def boundary_scan_cuda(pi, ops, logs, seg_of_contig, seg_has, chunk=None):
+    """K6: the three launches of ``BoundaryScan``, counted as one.
+    ``chunk`` forces the chunk length (for tests; None takes
+    ``boundary_plan``'s).  Returns the plain version's (ll f64 scalar, A_in
+    (S, M), Q_end (S, M), cvalid (C,))."""
+    k6 = BoundaryScan(pi, ops, logs, seg_of_contig, seg_has, chunk)
     BOUNDARY_SCAN.launches += 1
-    _cuda.check(
-        lib.smcpp_boundary_scan(
-            ops.data_ptr(), logs.contiguous().data_ptr(), pi32.data_ptr(),
-            soc.data_ptr(), cvalid.data_ptr(), C, NS, M, ll.data_ptr(),
-            A_in.data_ptr(), Q_end.data_ptr(), _stream(dev),
-        ),
-        BOUNDARY_SCAN.name,
-    )
-    return torch.sum(ll), A_in, Q_end, cvalid
+    k6.products()
+    k6.chunk_scan()
+    return k6.finish()
 
 
 def viterbi_boundary_cuda(pi, Wops, seg_of_contig):
@@ -544,10 +644,11 @@ def viterbi_boundary_cuda(pi, Wops, seg_of_contig):
     shuffle, and writes each listed segment's entry and exit state.  Exact:
     adds and maxima only, so it equals the plain version bit for bit.  No
     host copy.  Returns (seg_entry (S,), seg_exit (S,)) int32."""
-    soc, M = _check_boundary_inputs(Wops, seg_of_contig)
-    C, NS = soc.shape
+    socn, M = _check_boundary_inputs(Wops, seg_of_contig)
+    C, NS = socn.shape
     S = Wops.shape[0]
     dev = Wops.device
+    soc = torch.as_tensor(socn, device=dev)
     logpi = _log_pi(pi.to(dev), Wops.dtype).contiguous()
     bp = torch.empty((C, NS, M), dtype=torch.int8, device=dev)
     seg_entry = torch.zeros((S,), dtype=torch.int32, device=dev)
@@ -790,36 +891,83 @@ def contig_boundaries(pi, ops, logs, seg_of_contig, seg_has):
     return contig_boundaries_plain(pi, ops, logs, seg_of_contig, seg_has)
 
 
-def contig_boundaries_plain(pi, ops, logs, seg_of_contig, seg_has):
-    """contig_boundaries as plain torch: a loop over the segment axis of
-    each contig, batched over contigs, forward then backward."""
-    socn = np.asarray(seg_of_contig)
-    C, NS = socn.shape
+def _contig_valid(socn, seg_has):
+    "cvalid (C,): whether a contig lists a segment with a valid window."
+    pad = torch.as_tensor(socn < 0, device=seg_has.device)
+    idx = torch.as_tensor(np.maximum(socn, 0), device=seg_has.device)
+    return torch.any(torch.where(pad, False, seg_has[idx]), 1)
+
+
+def _fmaf(a, b, c):
+    """CUDA's fmaf(a, b, c) on f32 tensors: the exact product (in f64) plus
+    c, rounded to f32; the f64 sum's own rounding changes the result only
+    when it lands on an f32 tie, about once in 2^28.  Other dtypes: a b +
+    c."""
+    if c.dtype != torch.float32:
+        return a * b + c
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_matvec(P, x, transpose):
+    """K6's step product in its order: v_i = sum_j P[r, i, j] x[r, j] (or
+    with ``transpose`` v_j = sum_i P[r, i, j] x[r, i]), one fmaf chain in
+    the summed index from 0 up, as each lane of the kernel forms it."""
+    acc = torch.zeros_like(x)
+    for k in range(x.shape[1]):
+        acc = _fmaf(P[:, k, :] if transpose else P[:, :, k], x[:, k:k + 1], acc)
+    return acc
+
+
+def _warp_sum(v):
+    """The kernels' warp_sum of each row of v (R, M), M <= 32: the xor
+    butterfly over 32 lanes (zeros past M), in v's dtype."""
+    lanes = torch.zeros((v.shape[0], 32), dtype=v.dtype, device=v.device)
+    lanes[:, :v.shape[1]] = v
+    idx = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ o]
+    return lanes[:, 0]
+
+
+def _scan_rows_plain(ops, logs, socn, alpha, q, cv, kernel_order=False):
+    """The sequential boundary scans in the operators' dtype, batched over
+    the rows of the table ``socn`` (R, n) (-1: a padded slot, the identity
+    with log scale 0): forward from alpha (R, M), backward from q (R, M);
+    cv (R,) masks each row's log-likelihood terms.  Returns (ll (R,) f64,
+    A_in (S, M), Q_end (S, M)), each listed segment's vector before and
+    after it, the rest zero.  ``kernel_order`` forms each step's products
+    and sums as K6's finish does (``_kernel_matvec``, ``_warp_sum``) in
+    place of einsum and torch.sum."""
+    R, NS = socn.shape
     S, M = ops.shape[0], ops.shape[-1]
     dev, dt = ops.device, ops.dtype
     tiny = torch.finfo(dt).tiny
     pad = torch.as_tensor(socn < 0, device=dev)
     idx = torch.as_tensor(np.maximum(socn, 0), device=dev)
     eye = torch.eye(M, dtype=dt, device=dev)
-    ops_c = torch.where(pad[:, :, None, None], eye, ops[idx])  # (C, NS, M, M)
+    ops_c = torch.where(pad[:, :, None, None], eye, ops[idx])  # (R, NS, M, M)
     logs_c = torch.where(pad, 0.0, logs[idx])
-    cvalid = torch.any(torch.where(pad, False, seg_has[idx]), 1)
 
-    alpha = pi.to(dt).expand(C, M)
-    ll = torch.zeros(C, dtype=torch.float64, device=dev)
+    ll = torch.zeros(R, dtype=torch.float64, device=dev)
     a_pre = []
     for t in range(NS):
         a_pre.append(alpha)
-        v = torch.einsum("cij,cj->ci", ops_c[:, t], alpha)
-        c = torch.sum(v, 1)
+        if kernel_order:
+            v = _kernel_matvec(ops_c[:, t], alpha, False)
+            c = _warp_sum(v)
+        else:
+            v = torch.einsum("cij,cj->ci", ops_c[:, t], alpha)
+            c = torch.sum(v, 1)
         dll = (torch.log(c) + logs_c[:, t]).to(torch.float64)
-        ll = ll + torch.where(cvalid, dll, 0.0)
+        ll = ll + torch.where(cv, dll, 0.0)
         alpha = v / c[:, None]
-    q = torch.ones((C, M), dtype=dt, device=dev)
     q_post = [None] * NS
     for t in range(NS - 1, -1, -1):
         q_post[t] = q
-        qn = torch.einsum("cij,ci->cj", ops_c[:, t], q)
+        if kernel_order:
+            qn = _kernel_matvec(ops_c[:, t], q, True)
+        else:
+            qn = torch.einsum("cij,ci->cj", ops_c[:, t], q)
         q = qn / torch.clamp(torch.amax(qn, 1, keepdim=True), min=tiny)
     m = torch.as_tensor(socn >= 0, device=dev)
     rows = torch.as_tensor(socn[socn >= 0], device=dev)
@@ -827,6 +975,92 @@ def contig_boundaries_plain(pi, ops, logs, seg_of_contig, seg_has):
     Q_end = torch.zeros((S, M), dtype=dt, device=dev)
     A_in[rows] = torch.stack(a_pre, 1)[m]
     Q_end[rows] = torch.stack(q_post, 1)[m]
+    return ll, A_in, Q_end
+
+
+def contig_boundaries_plain(pi, ops, logs, seg_of_contig, seg_has):
+    """contig_boundaries as plain torch: a loop over the segment axis of
+    each contig, batched over contigs, forward then backward."""
+    socn = np.asarray(seg_of_contig)
+    C, M = socn.shape[0], ops.shape[-1]
+    cvalid = _contig_valid(socn, seg_has)
+    ll, A_in, Q_end = _scan_rows_plain(
+        ops, logs, socn, pi.to(ops.dtype).expand(C, M),
+        torch.ones((C, M), dtype=ops.dtype, device=ops.device), cvalid,
+    )
+    return torch.sum(ll), A_in, Q_end, cvalid
+
+
+def chunk_products_plain(ops, rows):
+    """K6's phase 1 as plain torch: for each row of ``rows`` (R, c) segment
+    ids (-1: padded, skipped), the ordered product ops[rows[r, c-1]] ...
+    ops[rows[r, 0]] in f64, from the identity, scaled after every step by
+    the power of two that puts its largest entry in [1, 2).  Returns (R, M,
+    M) f64."""
+    rows = torch.as_tensor(np.asarray(rows), device=ops.device)
+    R, c = rows.shape
+    M = ops.shape[-1]
+    P = torch.eye(M, dtype=torch.float64, device=ops.device).repeat(R, 1, 1)
+    for t in range(c):
+        s = rows[:, t]
+        nxt = torch.matmul(ops[s.clamp(min=0)].to(torch.float64), P)
+        _, ex = torch.frexp(torch.amax(torch.abs(nxt), (1, 2)))
+        nxt = nxt * torch.exp2((1 - ex).to(torch.float64))[:, None, None]
+        P = torch.where((s >= 0)[:, None, None], nxt, P)
+    return P
+
+
+def _chunk_scan_plain(pi, prod, C, n_chunks):
+    """K6's phase 2 as plain torch, in f64: each contig's forward scan over
+    its n_chunks products (prod (C n_chunks, M, M)) from pi, recording
+    every chunk's entry vector, and its backward scan over their transposes
+    from ones, recording every chunk's exit vector.  Returns (entry, exit)
+    (C n_chunks, M) f64."""
+    M = prod.shape[-1]
+    P = prod.view(C, n_chunks, M, M)
+    f64 = torch.float64
+    a = pi.to(device=prod.device, dtype=f64).expand(C, M)
+    q = torch.ones((C, M), dtype=f64, device=prod.device)
+    entry = torch.empty((C, n_chunks, M), dtype=f64, device=prod.device)
+    exit_ = torch.empty_like(entry)
+    for k in range(n_chunks):
+        entry[:, k] = a
+        v = torch.einsum("cij,cj->ci", P[:, k], a)
+        a = v / torch.sum(v, 1, keepdim=True)
+    for k in range(n_chunks - 1, -1, -1):
+        exit_[:, k] = q
+        qn = torch.einsum("cij,ci->cj", P[:, k], q)
+        q = qn / torch.clamp(torch.amax(qn, 1, keepdim=True), min=torch.finfo(f64).tiny)
+    return entry.view(-1, M), exit_.view(-1, M)
+
+
+def contig_boundaries_chunked_plain(pi, ops, logs, seg_of_contig, seg_has, chunk):
+    """K6's chunked scan as plain torch, the twin the kernel is held to
+    (neither the CPU path nor the main path calls it): the contig table cut
+    into chunk rows of ``chunk`` slots (``_chunk_rows``); the chunk products
+    in f64 (``chunk_products_plain``); the f64 scan over each contig's
+    chunks for every row's start vectors (``_chunk_scan_plain``), rounded to
+    the operators' dtype; then the sequential scan of every row at once from
+    them in that dtype, each step's products and sums formed in the
+    kernel's order (an fmaf chain, the warp butterfly), each row's f64
+    log-likelihood partial masked by its contig's cvalid, the partials summed
+    with one torch.sum.  With one chunk a contig, the rows start from pi and
+    ones: K6's sequential scan.
+    Returns (ll f64 scalar, A_in (S, M), Q_end (S, M), cvalid (C,))."""
+    socn = np.asarray(seg_of_contig)
+    C, M = socn.shape[0], ops.shape[-1]
+    dt, dev = ops.dtype, ops.device
+    rows, n_chunks = _chunk_rows(socn, chunk)
+    cvalid = _contig_valid(socn, seg_has)
+    if n_chunks > 1:
+        entry, exit_ = _chunk_scan_plain(pi, chunk_products_plain(ops, rows), C, n_chunks)
+        a0, q0 = entry.to(dt), exit_.to(dt)
+    else:
+        a0 = pi.to(device=dev, dtype=dt).expand(C, M)
+        q0 = torch.ones((C, M), dtype=dt, device=dev)
+    ll, A_in, Q_end = _scan_rows_plain(
+        ops, logs, rows, a0, q0, cvalid.repeat_interleave(n_chunks),
+        kernel_order=True)
     return torch.sum(ll), A_in, Q_end, cvalid
 
 

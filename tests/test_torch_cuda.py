@@ -21,7 +21,13 @@ and K2g sum their partials in an order fixed by (S, n_keys, M) (gsum in
 64-bit fixed point, xisum in warp order), so two launches must agree bit
 for bit.  K6 is an f32 recursion in another summation order: rtol 1e-5 /
 atol 1e-7 on the boundary vectors (normalized to a sum or a maximum of 1),
-rtol 1e-6 on the f64 log-likelihood.
+rtol 1e-6 on the f64 log-likelihood, against the sequential loop
+(``contig_boundaries_plain``).  K6 is a chunked scan (f64 chunk products
+and chunk scan, then an f32 finish over each chunk), so against its chunked
+twin (``contig_boundaries_chunked_plain``, the same phases in torch) it is
+held closer: rtol 1e-6 / atol 1e-8 on the vectors, rtol 1e-9 on ll; its
+phases 1 and 2 alone at rtol 1e-12 (f64 products) and 1e-6 (start vectors
+rounded to f32).
 
 K3 sums each step's exact products in f64 on the tensor cores and rounds
 each sum once to f32; its plain version is the same loop summed in f64
@@ -635,6 +641,75 @@ def test_boundary_scan_one_segment(dev, M):
     pi, ops, logs, soc, seg_has = _boundary_inputs(33, 1, M, "one_contig", dev)
     _, A_in, Q_end, _ = _check_boundary_scan(pi, ops, logs, soc, seg_has)
     assert torch.equal(A_in[0], pi) and torch.equal(Q_end[0], torch.ones_like(pi))
+
+
+def _check_chunked(pi, ops, logs, soc, seg_has, chunk):
+    """K6 at chunk length ``chunk`` (None: boundary_plan's) against its
+    chunked twin and the sequential loop (module docstring); one launch
+    counted."""
+    before = wk.BOUNDARY_SCAN.launches
+    got = wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wk.BOUNDARY_SCAN.launches == before + 1
+    k = chunk or wk.boundary_plan(soc.shape[1])[0]
+    twin = wk.contig_boundaries_chunked_plain(pi, ops, logs, soc, seg_has, k)
+    seq = wk.contig_boundaries_plain(pi, ops, logs, soc, seg_has)
+    for want, (rtol, atol, ll_rtol) in ((twin, (1e-6, 1e-8, 1e-9)),
+                                        (seq, (1e-5, 1e-7, 1e-6))):
+        torch.testing.assert_close(got[1], want[1], rtol=rtol, atol=atol)
+        torch.testing.assert_close(got[2], want[2], rtol=rtol, atol=atol)
+        torch.testing.assert_close(got[0], want[0], rtol=ll_rtol, atol=0.0)
+        assert torch.equal(got[3], want[3])
+    return got
+
+
+@pytest.mark.parametrize("chunk", ["1", "3", "8", "NS", "2NS", "plan"])
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+@pytest.mark.parametrize("M", [2, 15, 16, 17, 32])
+def test_boundary_scan_chunks_match_plain(dev, M, case, chunk):
+    pi, ops, logs, soc, seg_has = _boundary_inputs(37, 40, M, case, dev)
+    NS = soc.shape[1]
+    k = {"NS": NS, "2NS": 2 * NS, "plan": None}[chunk] if chunk in (
+        "NS", "2NS", "plan") else int(chunk)
+    _check_chunked(pi, ops, logs, soc, seg_has, k)
+
+
+@pytest.mark.parametrize("C,NS,M", [(1, 4096, 32), (22, 306, 16)])
+def test_boundary_scan_long_contigs(dev, C, NS, M):
+    """One contig of 4096 segments at M = 32, and C3's 22 contigs of 306
+    segments at M = 16: the plan's chunk length and chunks of 8."""
+    pi, ops, logs, _, seg_has = _boundary_inputs(38, C * NS, M, "one_contig", dev)
+    soc = np.arange(C * NS, dtype=np.int64).reshape(C, NS)
+    for chunk in (None, 8):
+        _check_chunked(pi, ops, logs, soc, seg_has, chunk)
+
+
+@pytest.mark.parametrize("M", [2, 15, 32])
+def test_boundary_phases_match_their_twins(dev, M):
+    """K6's phases 1 and 2 alone, at chunks of 3 over uneven contigs: the f64
+    chunk products against chunk_products_plain, the f32 start vectors
+    against the f64 chunk scan's."""
+    pi, ops, logs, soc, seg_has = _boundary_inputs(40, 40, M, "uneven", dev)
+    k6 = wk.BoundaryScan(pi, ops, logs, soc, seg_has, chunk=3)
+    assert k6.n_chunks == 5
+    k6.products()
+    k6.chunk_scan()
+    torch.cuda.synchronize()
+    rows, n_chunks = wk._chunk_rows(np.asarray(soc), 3)
+    prod = wk.chunk_products_plain(ops, rows)
+    torch.testing.assert_close(k6.prod, prod, rtol=1e-12, atol=0.0)
+    entry, exit_ = wk._chunk_scan_plain(pi, prod, soc.shape[0], n_chunks)
+    torch.testing.assert_close(k6.start_a, entry.float(), rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(k6.start_q, exit_.float(), rtol=1e-6, atol=0.0)
+
+
+def test_boundary_scan_chunked_is_bitwise_repeatable(dev):
+    pi, ops, logs, soc, seg_has = _boundary_inputs(39, 300, 32, "uneven", dev)
+    a = wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has, chunk=8)
+    b = wk.boundary_scan_cuda(pi, ops, logs, soc, seg_has, chunk=8)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def _viterbi_boundary_inputs(seed, S, M, ops_kind, dev):
