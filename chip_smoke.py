@@ -11,11 +11,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    inputs at small shapes, with kernel and plain times: K1 asc_sweep, K2
    dsc_sweep and K3 segment_ops at S=64, L=512, M=15, 16 and 17, 89 keys,
    f32 at 'highest' and 'default'; K2g dsc_sweep_gamma, K4 viterbi_ops and K5
-   viterbi_paths at S=64, L=512, M=2, 15, 16, 17 and 32, 89 keys; all six at
-   M=32 with 1000 keys (emission tables past a block's shared memory); K6
-   boundary_scan (also against its chunked twin) and K7 viterbi_boundary on
-   those K3 and K4 operators, laid out as three contigs of uneven length,
-   at M=2, 15, 16, 17 and 32;
+   viterbi_paths at S=64, L=512, M=2, 15, 16, 17 and 32, 89 keys, and K5
+   also on inputs with exact ties (``tie_problem``: S=13, L=200); all six
+   at M=32 with 1000 keys (emission tables past a block's shared memory);
+   K6 boundary_scan (also against its chunked twin) and K7
+   viterbi_boundary on those K3 and K4 operators, laid out as three
+   contigs of uneven length, at M=2, 15, 16, 17 and 32;
 4. the main path: simulate 2 contigs x 100 Mbp with n=20 (port's
    data/simulate.py, seeded), then ``smcpp_tpu_torch.commands.main estimate
    --em-iterations 2 --device cuda`` at the default knots, spline and w;
@@ -31,8 +32,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    (K3, K6, K1, K2 in the E-step; K3, K6, K1, K2g in the decode; K4, K7,
    K5), then times the decode's and the Viterbi's phases with CUDA events,
    holds K6 and K7 against their plain versions on the whole contig's
-   operators, and each of the six window kernels on the posterior manager's
-   own inputs, restricted to its first 32 segments;
+   operators, K5 on the whole contig (every window, from the boundary
+   states K7 gives, with its two launches timed apart: ``k5_phases``), and
+   the six window kernels on the posterior manager's own inputs,
+   restricted to its first 32 segments;
 6. ``estep_direct`` alone at the bench.py C3 shape (22 x 2.5e6 windows,
    M=16, 128 keys, drawn by the port's copy of bench.py's ``synth_contig``;
    median of 3 runs), in Gbp/s, with K6 against its plain version on its
@@ -67,6 +70,13 @@ bit-identical (``check_k6``).  Its plan, dependent depth (c + n_chunks + c
 steps, printed beside its bound) and the CUDA-event times of its setup and
 three phases are printed there too (``k6_phases``).
 
+K5 is two launches counted as one (``ViterbiPaths``: the forward sweep,
+writing the backpointers four windows to a word, then the backtrace through
+shared memory).  On every input set it must equal its plain version bit for
+bit, exact ties included (the lowest maximizing state), two calls must be
+bit-identical and its launches called one at a time must give the wrapper's
+path (``check_k5``); its plan (``viterbi_paths_plan``) is printed there.
+
 Every kernel time is printed beside its bound: the least time the card
 could take for the same work on the same inputs, the larger of its
 operations over the peak rate of their type and the bytes it must move
@@ -78,7 +88,8 @@ kernels (each is a serial scan with a renormalisation at every step), so
 The line before the last is the kernels' JSON record (launches from each
 kernel's own path: K1-K3 and K6 from phase 4's estimate, K2g, K4, K5 and K7
 from phase 5's posterior; errors, times and bounds from the comparison on
-that path's own inputs); the last line is ``{"ok": true, "device": {...}}``.
+that path's own inputs, for K5 the whole posterior contig); the last line
+is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is present.
 """
 
@@ -439,7 +450,7 @@ def check_equal(name, got, want):
 def compare_decode(tag, T, E, keys, valid, A_in, Q_end, entry, exit_, reps):
     """K2g, K4 and K5 against their plain versions on one input set, with
     f32 carries (the decode's rung); raises on a miss.  Returns {kernel
-    name: (max abs err, kernel ms, plain ms)}."""
+    name: (max abs err, kernel ms, plain ms, bound ms, bound by)}."""
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     al, _ = wk.asc_sweep_plain(T, E, keys, valid, A_in, "highest")
@@ -456,22 +467,104 @@ def compare_decode(tag, T, E, keys, valid, A_in, Q_end, entry, exit_, reps):
                      wk.viterbi_ops_plain(T, E, keys, valid))
     t4 = cuda_ms(lambda: wk.viterbi_ops_cuda(T, E, keys, valid), reps)
     t4p = cuda_ms(lambda: wk.viterbi_ops_plain(T, E, keys, valid), 1)
-    e5 = check_equal(
-        f"viterbi_paths [{tag}]",
-        wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_),
-        wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_),
-    )
-    t5 = cuda_ms(lambda: wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_), reps)
-    t5p = cuda_ms(lambda: wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_), 1)
     rec = {
         "dsc_sweep_gamma": (eg, tg, tgp, *bound("dsc_sweep_gamma", E, keys, valid)),
         "viterbi_ops": (e4, t4, t4p, *bound("viterbi_ops", E, keys, valid)),
-        "viterbi_paths": (e5, t5, t5p, *bound("viterbi_paths", E, keys, valid)),
+        "viterbi_paths": compare_k5(tag, T, E, keys, valid, entry, exit_, reps),
     }
     log(f"[{tag}] ms kernel/plain/bound: "
         + " ".join(f"{n} {r[1]:.3f}/{r[2]:.1f}/{r[3]:.4f}" for n, r in rec.items())
-        + f"; max abs err {eg:.2e} {e4:.2e} {e5:.2e}")
+        + f"; max abs err {eg:.2e} {e4:.2e} 0 (K5 bit for bit)")
     return rec
+
+
+def check_k5(tag, T, E, keys, valid, entry, exit_):
+    """K5 against viterbi_paths_plain on one input set, bit for bit (ties
+    included: the lowest maximizing state); two calls bit-identical; its two
+    launches one at a time (ViterbiPaths.fwd, then .back) equal to the
+    wrapper's call.  Logs the plan; raises on a miss.  Returns the plain
+    version's CUDA-event milliseconds (one run)."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    got = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+    if not torch.equal(got, wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)):
+        raise AssertionError(f"viterbi_paths [{tag}]: two launches differ")
+    k5 = wk.ViterbiPaths(T, E, keys, valid, entry, exit_)
+    k5.fwd()
+    check_equal(f"viterbi_paths [{tag}] fwd() then back()", k5.back(), got)
+    del k5
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_)
+    stop.record()
+    torch.cuda.synchronize()
+    check_equal(f"viterbi_paths [{tag}]", got, want)
+    S, L = keys.shape
+    log(f"viterbi_paths [{tag}]: equal to the plain version bit for bit "
+        f"({S * L} windows), two launches bit-identical; plan "
+        f"{wk.viterbi_paths_plan(S, L, T.shape[0], E.shape[0])}")
+    return start.elapsed_time(stop)
+
+
+def compare_k5(tag, T, E, keys, valid, entry, exit_, reps):
+    """``check_k5``, then the wrapper's mean time: (max abs err, kernel ms,
+    plain ms, bound ms, bound by)."""
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    t5p = check_k5(tag, T, E, keys, valid, entry, exit_)
+    t5 = cuda_ms(lambda: wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_), reps)
+    return (0.0, t5, t5p, *bound("viterbi_paths", E, keys, valid))
+
+
+def k5_phases(tag, T, E, keys, valid, entry, exit_, reps=5):
+    """CUDA-event milliseconds of K5's two launches (ViterbiPaths: the
+    forward sweep ``fwd`` and the backtrace ``back``), mean of ``reps``
+    runs each after a warm-up, printed with the plan."""
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    k5 = wk.ViterbiPaths(T, E, keys, valid, entry, exit_)
+    k5.fwd()
+    t = {"viterbi_fwd": cuda_ms(k5.fwd, reps), "viterbi_back": cuda_ms(k5.back, reps)}
+    log(f"K5 phases [{tag}], ms: " + ", ".join(f"{n} {v:.4f}" for n, v in t.items())
+        + f"; plan {k5.plan}")
+    return t
+
+
+def tie_problem(seed, S, L, M, n_keys, a, b):
+    """tests/_viterbi_ties.py's inputs on the card: K5's candidates a < b
+    tie exactly at every valid window once both are reachable.  Returns
+    (T, E, keys, valid, entry, exit)."""
+    import importlib.util
+
+    import torch
+
+    # by path: an installed package named "tests" may shadow the repo's
+    spec = importlib.util.spec_from_file_location(
+        "_viterbi_ties", os.path.join(HERE, "tests", "_viterbi_ties.py"))
+    ties = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ties)
+    return tuple(torch.as_tensor(x, device="cuda")
+                 for x in ties.tie_inputs(seed, S, L, M, n_keys, a, b))
+
+
+def k5_alone(reps=5):
+    """K5 alone at the posterior's shape (S x L = 6104 x 16384, M = 32, 63
+    keys) on synthetic inputs: ``check_k5`` against the plain version on
+    every window, ``k5_phases``, and the wrapper's time beside its bound;
+    then the tie inputs at small shapes.  Not part of ``main``: a quick
+    check and timing of K5 on the card."""
+    S, L, M, nk = 6104, 16384, 32, 63
+    T, E, keys, valid, _, _ = problem(SEED, S, L, M, nk)
+    entry, exit_ = states(SEED, S, M)
+    tag = f"posterior shape, S x L = {S} x {L}, M = {M}, {nk} keys"
+    _, t, tp, b, by = compare_k5(tag, T, E, keys, valid, entry, exit_, reps)
+    k5_phases(tag, T, E, keys, valid, entry, exit_, reps)
+    log(f"K5 alone [{tag}]: {t:.4f} ms a call (plain {tp:.1f} ms), bound {b:.4f} ms ({by})")
+    del T, E, keys, valid
+    for M in (2, 15, 16, 17, 32):
+        check_k5(f"ties M={M}", *tie_problem(SEED, 13, 200, M, 89, M // 3, M - 1))
 
 
 def _rel_dist(got, want):
@@ -663,6 +756,8 @@ def compare_small():
         pi[1] = 0.0  # a state no MAP path may start in
         compare_boundary(f"small S={S} M={M}", pi, ops, logs, uneven_contigs(S),
                          torch.any(valid, 1), wk.viterbi_ops_cuda(T, E, keys, valid), 3)
+        check_k5(f"ties S=13 L=200 M={M}", *tie_problem(SEED, 13, 200, M, 89,
+                                                         M // 3, M - 1))
     S, L, M, nk = 64, 512, 32, 1000
     T, E, keys, valid, A_in, Q_end = problem(SEED, S, L, M, nk)
     for prec in ("highest", "default"):
@@ -936,10 +1031,12 @@ def posterior_breakdown(im, pi, T, E):
 def compare_posterior(im, pi, T, E, n_seg=32):
     """Every kernel against its plain version on the posterior manager's own
     inputs: K6 and K7 on the whole contig's segment operators (its packed
-    windows, f32 T and E); the six window kernels on the boundary vectors
-    and boundary states those give, restricted to the first ``n_seg``
-    segments (a plain loop over every window would take minutes).  Returns
-    the records of all eight kernels."""
+    windows, f32 T and E), and K5 on the whole contig from the boundary
+    states K7 gives, with its two launches' times (``k5_phases``); the six
+    window kernels on the boundary vectors and states those give,
+    restricted to the first ``n_seg`` segments (the others' plain loops
+    over every window would take minutes).  Returns the records of all
+    eight kernels, K5's from the whole contig."""
     import torch
 
     from smcpp_tpu_torch.ops import window_kernel as wk
@@ -959,6 +1056,10 @@ def compare_posterior(im, pi, T, E, n_seg=32):
     rec = compare(tag, T, E, k, v, a, q, prec, 5)
     rec.update(compare_decode(tag, T, E, k, v, a, q, entry[sl].contiguous(),
                               exit_[sl].contiguous(), 5))
+    tag = (f"posterior path, whole contig: S x L = {tuple(keys.shape)}, "
+           f"M = {T.shape[0]}, {E.shape[0]} keys")
+    rec["viterbi_paths"] = compare_k5(tag, T, E, keys, valid, entry, exit_, 5)
+    k5_phases(tag, T, E, keys, valid, entry, exit_)
     rec.update(rec6)
     log("kernel comparisons (posterior path): all within tolerance")
     return rec

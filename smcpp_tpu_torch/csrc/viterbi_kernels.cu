@@ -5,13 +5,18 @@
 //                     smcpp_tpu/ops/window_kernel.py:viterbi_segment_ops
 //                     (phase A: per-segment max-plus transfer operators)
 //   K5 viterbi_paths  replaces the forward sweep and the reverse backtrace
-//                     of smcpp_tpu/ops/window_kernel.py:viterbi_segment_paths
-//                     (phase C, full backpointer stream)
+//                     of smcpp_tpu/ops/window_kernel.py:871
+//                     (viterbi_segment_paths: phase C, full backpointer
+//                     stream), as two launches, viterbi_fwd and viterbi_back
 //
-// What bounds them: serial depth along the L windows of a segment, as for
-// the E-step kernels, and for K4 the M^2 max-adds per lane per window (M^3
-// per segment per window).  The design is K3's in max-plus: one warp per
-// segment, the carry in registers, no block barrier in the window loop.
+// What bounds them: serial depth along the L windows of a segment, at one
+// warp per segment.  K4 carries its operator in registers as K3 does and is
+// bound by the M^2 max-adds per lane per window.  K5's forward reads V from
+// shared memory (no shuffles in the max), so what is left is its compare and
+// select instructions, three per candidate j per lane, which run at half
+// the rate of f32 adds on sm_90; its backtrace copies the backpointers into
+// shared memory 32 windows at a time, ahead of a walk of one shared-memory
+// load per window, and is bound by the stream's bytes.
 //
 // Both are exact: every step is f32 adds and maxima, which round the same
 // way in any order, so the kernels reproduce their plain versions bit for
@@ -43,6 +48,18 @@ __device__ __forceinline__ const float* log_table(float* sE, const float* logE,
     ES = M;
     return logE;
   }
+}
+
+// K5's backpointer scratch holds bp_windows(L) windows a segment: L rounded
+// up to a multiple of 4, so that every segment and every block of 32 windows
+// starts on a 4-byte boundary (at most 3 windows of padding a segment).
+__host__ __device__ __forceinline__ int bp_windows(int L) { return (L + 3) & ~3; }
+
+// K5's backtrace ring: blocks of 32 windows in shared memory per warp, and
+// one warp's shared bytes (the ring, then a row of 32 int32 states).
+constexpr int BACK_RING = 4;
+__host__ __device__ __forceinline__ int back_warp_bytes(int M) {
+  return BACK_RING * 32 * M + 32 * (int)sizeof(int32_t);
 }
 
 // ---------------------------------------------------------------------------
@@ -121,26 +138,35 @@ __global__ void __launch_bounds__(128) viterbi_ops_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K5: lane i owns V[i] and column i of log T (registers).  A valid window
-// does V2[i] = max_j(logT[j][i] + V[j]) + logE[key][i] with the lowest
-// maximizing j as its int8 backpointer, then subtracts max_i V2; an invalid
-// window keeps V and stores the identity backpointer.  The backpointers
-// (S, L, M) are one 32-byte row per window.  Then lane 0 walks them back
-// from the segment's exit state, writing the state after each window.
+// K5, launch 1 (viterbi_fwd): lane i owns V[i] and column i of log T
+// (registers).  A valid window does V2[i] = max_j(logT[j][i] + V[j]) +
+// logE[key][i] with the lowest maximizing j as its backpointer, then
+// subtracts max_i V2; an invalid window keeps V and stores the identity
+// backpointer.  Every lane reads the whole of V from a per-warp row in shared
+// memory (float4 broadcasts; two rows used in turn, so one __syncwarp a window
+// orders each write before its reads and after the reads of the window before
+// last).  The maximum over j runs as four strict-'>' chains over four
+// contiguous runs of j, merged in run order with a strict '>': the first
+// maximum of each run, then the lowest run holding the maximum, which is the
+// lowest maximizing j, as one chain over all j gives.  Each lane packs four
+// windows' backpointers into one 32-bit word and stores it every fourth
+// window (a warp's 128-byte row of the scratch).
 // ---------------------------------------------------------------------------
 template <int MB, bool SMEM_E>
-__global__ void __launch_bounds__(128) viterbi_paths_kernel(
+__global__ void __launch_bounds__(128) viterbi_fwd_kernel(
     const float* __restrict__ logT, const float* __restrict__ logE,
     const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
-    const int32_t* __restrict__ seg_entry, const int32_t* __restrict__ seg_exit,
-    int S, int L, int M, int n_keys, int8_t* bp, int32_t* __restrict__ path) {
-  extern __shared__ float smem[];
+    const int32_t* __restrict__ seg_entry, int S, int L, int M, int n_keys,
+    uint8_t* __restrict__ bp) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   int ES;
   const float* tE = log_table<MB, SMEM_E>(smem, logE, M, n_keys, ES);
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* sV = smem + (SMEM_E ? n_keys * MB : 0) + warp * 2 * MB;  // two rows of MB
+  const int s = blockIdx.x * (blockDim.x >> 5) + warp;
   if (s >= S) return;
   const bool live = lane < M;
   float LTcol[MB];
@@ -149,7 +175,10 @@ __global__ void __launch_bounds__(128) viterbi_paths_kernel(
   float V = (lane == seg_entry[s]) ? 0.f : MP_NEG;
   const int32_t* kr = keys + (size_t)s * L;
   const uint8_t* vr = valid + (size_t)s * L;
-  int8_t* bs = bp + (size_t)s * L * M;
+  uint32_t* bs = reinterpret_cast<uint32_t*>(bp + (size_t)s * bp_windows(L) * M);
+  constexpr int Q = MB / 4;  // length of each of the four runs of j
+  int row = 0;
+  uint32_t word = 0;  // four windows' backpointers, window l in byte l % 4
 
   for (int l0 = 0; l0 < L; l0 += 32) {
     const int nstep = min(32, L - l0);
@@ -163,30 +192,114 @@ __global__ void __launch_bounds__(128) viterbi_paths_kernel(
       const int v = __shfl_sync(FULL, my_v, t);
       int arg = lane;
       if (v) {  // warp-uniform
-        float best = LTcol[0] + __shfl_sync(FULL, V, 0);
-        arg = 0;
+        float* r = sV + row * MB;
+        if (lane < MB) r[lane] = live ? V : -INFINITY;
+        __syncwarp();
+        float Vj[MB];
 #pragma unroll
-        for (int j = 1; j < MB; ++j) {
-          const float x = LTcol[j] + __shfl_sync(FULL, V, j);
-          if (x > best) {  // strict: ties keep the lowest j
-            best = x;
-            arg = j;
+        for (int j4 = 0; j4 < MB / 4; ++j4) {
+          const float4 x = reinterpret_cast<const float4*>(r)[j4];
+          Vj[4 * j4] = x.x;
+          Vj[4 * j4 + 1] = x.y;
+          Vj[4 * j4 + 2] = x.z;
+          Vj[4 * j4 + 3] = x.w;
+        }
+        float rb[4];
+        int ra[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          rb[q] = LTcol[q * Q] + Vj[q * Q];
+          ra[q] = q * Q;
+        }
+#pragma unroll
+        for (int k = 1; k < Q; ++k) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float x = LTcol[q * Q + k] + Vj[q * Q + k];
+            if (x > rb[q]) {  // strict: ties keep the run's lowest j
+              rb[q] = x;
+              ra[q] = q * Q + k;
+            }
+          }
+        }
+        float best = rb[0];
+        arg = ra[0];
+#pragma unroll
+        for (int q = 1; q < 4; ++q) {
+          if (rb[q] > best) {  // strict: a tie keeps the lower run
+            best = rb[q];
+            arg = ra[q];
           }
         }
         const float V2 = live ? best + table<SMEM_E>(tE, key * ES + lane) : -INFINITY;
         V = V2 - warp_max(V2);
+        row ^= 1;
       }
-      if (live) bs[(size_t)(l0 + t) * M + lane] = (int8_t)arg;
+      word |= (uint32_t)arg << (8 * (t & 3));
+      if ((t & 3) == 3 || t == nstep - 1) {
+        if (live) bs[((l0 + t) >> 2) * M + lane] = word;
+        word = 0;
+      }
     }
   }
-  __syncwarp();  // the backpointers written by every lane are visible to lane 0
-  if (lane == 0) {
-    int state = seg_exit[s];
-    int32_t* ps = path + (size_t)s * L;
-    for (int l = L - 1; l >= 0; --l) {
-      ps[l] = state;
-      state = bs[(size_t)l * M + state];
+}
+
+// ---------------------------------------------------------------------------
+// K5, launch 2 (viterbi_back): one warp per segment walks its backpointers
+// back from the segment's exit state.  The stream is read in blocks of 32
+// windows (32 M contiguous bytes), last block first, with
+// cp.async into a per-warp ring of BACK_RING blocks in shared memory,
+// BACK_RING - 1 blocks ahead of the walk.  Lane 0 walks a block in shared
+// memory (one dependent shared load a window) and writes each window's state
+// into a per-warp row; the warp then stores the row as one coalesced store.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(128) viterbi_back_kernel(
+    const int32_t* __restrict__ seg_exit, int S, int L, int M,
+    const uint8_t* __restrict__ bp, int32_t* __restrict__ path) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int blk = 32 * M;  // bytes of one block of 32 windows
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem4) + warp * back_warp_bytes(M);
+  int32_t* sPath = reinterpret_cast<int32_t*>(ring + BACK_RING * blk);
+  const int s = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (s >= S) return;
+  const uint8_t* bs = bp + (size_t)s * bp_windows(L) * M;
+  const bool vec = (bp_windows(L) * M) % 16 == 0;  // every segment starts on 16 bytes
+  const int nblk = (L + 31) / 32;
+
+  auto fetch = [&](int b) {  // block b's bytes into its ring slot; one group
+    if (b >= 0) {
+      const int bytes = bp_windows(min(32, L - 32 * b)) * M;  // a multiple of 4
+      const uint8_t* src = bs + (size_t)b * blk;
+      uint8_t* dst = ring + (b % BACK_RING) * blk;
+      int done = 0;
+      if (vec) {
+        for (int i = lane; i < bytes / 16; i += 32) cp_async16(dst + 16 * i, src + 16 * i);
+        done = bytes / 16 * 16;
+      }
+      for (int i = done / 4 + lane; i < bytes / 4; i += 32) cp_async4(dst + 4 * i, src + 4 * i);
     }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < BACK_RING - 1; ++k) fetch(nblk - 1 - k);
+
+  int state = seg_exit[s];  // lane 0's walk
+  int32_t* ps = path + (size_t)s * L;
+  for (int b = nblk - 1; b >= 0; --b) {
+    fetch(b - (BACK_RING - 1));
+    cp_async_wait<BACK_RING - 1>();
+    __syncwarp();  // block b's bytes, copied by every lane, are visible to lane 0
+    const int nt = min(32, L - 32 * b);
+    const uint8_t* sb = ring + (b % BACK_RING) * blk;
+    if (lane == 0) {
+      for (int t = nt - 1; t >= 0; --t) {
+        sPath[t] = state;
+        state = sb[(t >> 2) * 4 * M + state * 4 + (t & 3)];
+      }
+    }
+    __syncwarp();  // the row is written; slot b is free for the next fetch
+    if (lane < nt) ps[32 * b + lane] = sPath[lane];
   }
 }
 
@@ -213,23 +326,39 @@ int smcpp_viterbi_ops(const float* logT, const float* logE, const int32_t* keys,
   return (int)cudaGetLastError();
 }
 
-// bp (S, L, M) int8 scratch, path (S, L) int32; seg_entry, seg_exit (S,) int32.
-int smcpp_viterbi_paths(const float* logT, const float* logE, const int32_t* keys,
-                        const uint8_t* valid, const int32_t* seg_entry,
-                        const int32_t* seg_exit, int S, int L, int M, int n_keys,
-                        int8_t* bp, int32_t* path, void* stream) {
+// K5 launch 1: bp the backpointer scratch, (S, bp_windows(L) / 4, M) uint32
+// words, byte l % 4 of word (l / 4, i) window l's backpointer of state i;
+// seg_entry (S,) int32.
+// shared_table is the plan's table route (window_kernel.viterbi_paths_plan);
+// a plan that disagrees with this launch's is refused.
+int smcpp_viterbi_paths_fwd(const float* logT, const float* logE, const int32_t* keys,
+                            const uint8_t* valid, const int32_t* seg_entry, int S,
+                            int L, int M, int n_keys, int shared_table, uint8_t* bp,
+                            void* stream) {
   if (M < 2 || M > 32 || S <= 0 || L <= 0 || n_keys <= 0) return (int)cudaErrorInvalidValue;
   const int MBV = padded(M);
-  const size_t smem = sizeof(float) * (size_t)n_keys * MBV;
+  const size_t smem_v = sizeof(float) * 2 * MBV * WARPS_PER_BLOCK;
+  const size_t smem = sizeof(float) * (size_t)n_keys * MBV + smem_v;
+  if ((smem <= SMEM_MAX) != (shared_table != 0)) return (int)cudaErrorInvalidValue;
   const dim3 grid((S + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK), block(32 * WARPS_PER_BLOCK);
   cudaStream_t st = (cudaStream_t)stream;
   int e = 0;
   SMCPP_DISPATCH(MBV, {
-    e = launch_e(viterbi_paths_kernel<MB_, true>, viterbi_paths_kernel<MB_, false>, smem,
-                 (size_t)0, grid, block, st, logT, logE, keys, valid, seg_entry, seg_exit,
-                 S, L, M, n_keys, bp, path);
+    e = launch_e(viterbi_fwd_kernel<MB_, true>, viterbi_fwd_kernel<MB_, false>, smem, smem_v,
+                 grid, block, st, logT, logE, keys, valid, seg_entry, S, L, M, n_keys, bp);
   });
   if (e) return e;
+  return (int)cudaGetLastError();
+}
+
+// K5 launch 2: path (S, L) int32 from the scratch of launch 1; seg_exit (S,) int32.
+int smcpp_viterbi_paths_back(const int32_t* seg_exit, int S, int L, int M,
+                             const uint8_t* bp, int32_t* path, void* stream) {
+  if (M < 2 || M > 32 || S <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)back_warp_bytes(M) * WARPS_PER_BLOCK;
+  const dim3 grid((S + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK), block(32 * WARPS_PER_BLOCK);
+  cudaStream_t st = (cudaStream_t)stream;
+  viterbi_back_kernel<<<grid, block, smem, st>>>(seg_exit, S, L, M, bp, path);
   return (int)cudaGetLastError();
 }
 

@@ -46,9 +46,10 @@ _SIGNATURES = {
     },
     "viterbi_kernels.cu": {
         "smcpp_viterbi_ops": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-        "smcpp_viterbi_paths": [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+        "smcpp_viterbi_paths_fwd": [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
         ],
+        "smcpp_viterbi_paths_back": [_P, _I, _I, _I, _P, _P, _P],
     },
     "boundary_kernels.cu": {
         "smcpp_boundary_products": [_P, _P, _I, _I, _I, _P, _P],

@@ -450,36 +450,108 @@ def viterbi_ops_cuda(T, E, keys, valid):
     return ops
 
 
-def viterbi_paths_cuda(T, E, keys, valid, seg_entry, seg_exit):
-    """K5 (replaces window_kernel.py:viterbi_segment_paths, block=None).
+# mirrors of csrc/common.cuh and csrc/viterbi_kernels.cu for K5's plan
+WARPS_PER_BLOCK = 4
+SMEM_MAX = 232448  # 227 KB, the most one block can have on sm_90
+VITERBI_BACK_RING = 4
 
-    What bounds it: serial depth, forward along L and back along L (the
-    backtrace is a chain of dependent loads), and the (S, L, M) int8
-    backpointer stream.  Design: one warp per segment, lane i owns V[i] and
-    column i of log T in registers; the lowest maximizing j is the
-    backpointer (jnp.argmax's tie rule), one 32-byte row per window; lane 0
-    then walks the rows back from the segment's exit state.  Returns path
-    (S, L) int32, the state after each window (segment-major)."""
-    _check_inputs(T, E, keys, valid)
-    S, L = keys.shape
-    M = T.shape[0]
-    _check_states(seg_entry, S, M, T.device)
-    _check_states(seg_exit, S, M, T.device)
-    logT = torch.log(T).contiguous()
-    logE = torch.log(E).contiguous()
-    bp = torch.empty((S, L, M), dtype=torch.int8, device=T.device)
-    path = torch.empty((S, L), dtype=torch.int32, device=T.device)
-    lib = _cuda.lib()
+
+def viterbi_paths_plan(S, L, M, n_keys):
+    """K5's two launches for these sizes: {grid (blocks), block (threads),
+    the forward's shared bytes a block, whether its emission table is in
+    shared memory ('shared_table'; else it is read from global memory), the
+    backtrace's shared bytes a block, and the backpointer scratch's shape,
+    dtype and bytes}.  Both launches run one warp per segment, four to a
+    block.  The scratch holds L rounded up to a multiple of 4 windows a
+    segment, M bytes a window, as (S, L4 / 4, M) int32 words: byte l % 4
+    of word (l / 4, i) is window l's backpointer of state i."""
+    MB = -(-M // 4) * 4
+    rows = 4 * 2 * MB * WARPS_PER_BLOCK  # two rows of V per warp
+    table = 4 * n_keys * MB
+    shared_table = table + rows <= SMEM_MAX
+    L4 = -(-L // 4) * 4
+    return {
+        "grid": -(-S // WARPS_PER_BLOCK),
+        "block": 32 * WARPS_PER_BLOCK,
+        "fwd_shared_bytes": (table if shared_table else 0) + rows,
+        "shared_table": shared_table,
+        "back_shared_bytes": WARPS_PER_BLOCK * (VITERBI_BACK_RING * 32 * M + 4 * 32),
+        "scratch_shape": (S, L4 // 4, M),
+        "scratch_dtype": torch.int32,
+        "scratch_bytes": S * L4 * M,
+    }
+
+
+class ViterbiPaths:
+    """K5's two launches, one at a time: construct it, then call ``fwd()``
+    and ``back()`` in order on the current stream (``viterbi_paths_cuda``
+    does; they are separate so that each can be timed).  The scratch is
+    ``viterbi_paths_plan``'s; every launch checks its return and raises on
+    failure."""
+
+    def __init__(self, T, E, keys, valid, seg_entry, seg_exit):
+        _check_inputs(T, E, keys, valid)
+        S, L = keys.shape
+        M = T.shape[0]
+        _check_states(seg_entry, S, M, T.device)
+        _check_states(seg_exit, S, M, T.device)
+        self.plan = viterbi_paths_plan(S, L, M, E.shape[0])
+        self.S, self.L, self.M, self.n_keys = S, L, M, E.shape[0]
+        self.keys, self.valid = keys, valid
+        self.seg_entry, self.seg_exit = seg_entry, seg_exit
+        self.logT = torch.log(T).contiguous()
+        self.logE = torch.log(E).contiguous()
+        self.bp = torch.empty(self.plan["scratch_shape"], dtype=self.plan["scratch_dtype"],
+                              device=T.device)
+        self.path = torch.empty((S, L), dtype=torch.int32, device=T.device)
+        self._stream = _stream(T.device)
+        self._lib = _cuda.lib()
+
+    def fwd(self):
+        "Launch 1: the forward sweep, writing the backpointer scratch."
+        _cuda.check(self._lib.smcpp_viterbi_paths_fwd(
+            self.logT.data_ptr(), self.logE.data_ptr(), self.keys.data_ptr(),
+            self.valid.data_ptr(), self.seg_entry.data_ptr(), self.S, self.L,
+            self.M, self.n_keys, int(self.plan["shared_table"]), self.bp.data_ptr(),
+            self._stream,
+        ), VITERBI_PATHS.name)
+
+    def back(self):
+        "Launch 2: the backtrace; returns path (S, L) int32."
+        _cuda.check(self._lib.smcpp_viterbi_paths_back(
+            self.seg_exit.data_ptr(), self.S, self.L, self.M, self.bp.data_ptr(),
+            self.path.data_ptr(), self._stream,
+        ), VITERBI_PATHS.name)
+        return self.path
+
+
+def viterbi_paths_cuda(T, E, keys, valid, seg_entry, seg_exit):
+    """K5 (replaces the JAX package's window_kernel.py:871,
+    viterbi_segment_paths with block=None): the two launches of
+    ``ViterbiPaths``, counted as one.
+
+    What bounds it: serial depth, L dependent max-plus steps forward and L
+    dependent backpointer reads back, one warp per segment.  The forward
+    (``fwd()``, csrc/viterbi_kernels.cu:viterbi_fwd_kernel): lane i owns
+    V[i] and column i of log T in registers and reads V from a per-warp row
+    of shared memory (float4 broadcasts, no shuffles); the maximum over j
+    runs as four contiguous runs merged in order, so the backpointer is the
+    lowest maximizing j (jnp.argmax's and torch.max's tie rule); four
+    windows' backpointers go to the scratch as one word a lane.  What is
+    left bounding it is its compare and select instructions, three per
+    candidate j, which run at half the f32 add rate.  The backtrace
+    (``back()``, viterbi_back_kernel): each warp copies its segment's
+    backpointers into a shared-memory ring 32 windows at a time (cp.async,
+    three blocks ahead), lane 0 walks each block back from the segment's
+    exit state in shared memory, and the warp stores 32 states of the path
+    at once; it is bound by the scratch's bytes.  Exact: adds and maxima
+    only, each the plain version's f32 operation, so it equals
+    ``viterbi_paths_plain`` bit for bit.  Returns path (S, L) int32, the
+    state after each window (segment-major)."""
+    k5 = ViterbiPaths(T, E, keys, valid, seg_entry, seg_exit)
     VITERBI_PATHS.launches += 1
-    _cuda.check(
-        lib.smcpp_viterbi_paths(
-            logT.data_ptr(), logE.data_ptr(), keys.data_ptr(), valid.data_ptr(),
-            seg_entry.data_ptr(), seg_exit.data_ptr(), S, L, M, E.shape[0],
-            bp.data_ptr(), path.data_ptr(), _stream(T.device),
-        ),
-        VITERBI_PATHS.name,
-    )
-    return path
+    k5.fwd()
+    return k5.back()
 
 
 def _check_boundary_inputs(ops, seg_of_contig):

@@ -16,7 +16,11 @@ at the same points on both sides, but an ulp-level f32 difference can flip
 a bf16 rounding: a stored bf16 value may differ by one bf16 ulp (at most
 2^-7 relative), and quantities computed from such carries are held at
 rtol 1e-3.  K4 and K5 add and take maxima only, which round alike in any
-order: they must equal their plain versions exactly, and so must K7.  K2
+order: they must equal their plain versions exactly, and so must K7.  K5
+runs as two launches (``ViterbiPaths``: the forward sweep, then the
+backtrace), held together and one at a time, on inputs with exact ties
+(tests/_viterbi_ties.py), where its backpointer must be the lowest
+maximizing state as in the plain version.  K2
 and K2g sum their partials in an order fixed by (S, n_keys, M) (gsum in
 64-bit fixed point, xisum in warp order), so two launches must agree bit
 for bit.  K6 is an f32 recursion in another summation order: rtol 1e-5 /
@@ -266,6 +270,78 @@ def test_viterbi_paths_matches_plain(dev, M):
     exit_[3] = M
     with pytest.raises(ValueError, match="boundary states"):
         wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+
+
+def _tie_problem(seed, S, L, M, n_keys, a, b, dev):
+    "tests/_viterbi_ties.py's inputs on the card."
+    from _viterbi_ties import tie_inputs
+
+    T, E, keys, valid, entry, exit_ = tie_inputs(seed, S, L, M, n_keys, a, b)
+    f = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return f(T), f(E), f(keys), f(valid), f(entry), f(exit_)
+
+
+def _check_k5(T, E, keys, valid, entry, exit_):
+    """K5 against viterbi_paths_plain, bit for bit, and its launches one at
+    a time (ViterbiPaths.fwd, then .back) against the wrapper's call."""
+    before = wk.VITERBI_PATHS.launches
+    path = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+    torch.cuda.synchronize()
+    assert wk.VITERBI_PATHS.launches == before + 1
+    assert path.shape == keys.shape and path.dtype == torch.int32
+    assert torch.equal(path, wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_))
+    k5 = wk.ViterbiPaths(T, E, keys, valid, entry, exit_)
+    k5.fwd()
+    torch.cuda.synchronize()
+    assert torch.equal(k5.back(), path)
+    assert wk.VITERBI_PATHS.launches == before + 1
+    return path
+
+
+@pytest.mark.parametrize("L", [7, 32, 33, 200])
+@pytest.mark.parametrize("M", MS)
+def test_viterbi_paths_ties_match_plain(dev, M, L):
+    """Twin states a < b tie exactly at every valid window: the kernel takes
+    a, as the plain version does, and is at b only where it is."""
+    a, b = (0, 1) if M == 2 else (M // 3, M - 2)
+    args = _tie_problem(M * 1000 + L, 13, L, M, 40, a, b, dev)
+    path = _check_k5(*args)
+    assert bool((path == a).any())
+
+
+@pytest.mark.parametrize("L", [7, 32, 33, 200])
+@pytest.mark.parametrize("M", MS)
+def test_viterbi_paths_edge_shapes(dev, M, L):
+    """S not a multiple of the 4 warps a block, L not a multiple of the 4
+    windows a word or the 32 of a backtrace block, an all-invalid segment,
+    and invalid runs across 32-window blocks."""
+    T, E, keys, valid, _, _ = _problem(40 + M, 13, L, M, 89, dev)
+    valid[3] = False
+    valid[5, 20:70] = False
+    valid[7, 30:34] = False
+    valid[8, : L // 2] = False
+    entry, exit_ = _states(41 + M, 13, M, dev)
+    _check_k5(T, E, keys, valid, entry, exit_)
+
+
+@pytest.mark.parametrize("n_keys,shared_table", [(1000, True), (2000, False)])
+def test_viterbi_paths_table_routes(dev, n_keys, shared_table):
+    """The emission table in shared memory (1000 keys at M = 32: 125 KB)
+    and past a block's shared memory (2000 keys: 250 KB, read from global
+    memory)."""
+    M = 32
+    assert wk.viterbi_paths_plan(24, 200, M, n_keys)["shared_table"] is shared_table
+    T, E, keys, valid, _, _ = _problem(42, 24, 200, M, n_keys, dev)
+    _check_k5(T, E, keys, valid, *_states(43, 24, M, dev))
+
+
+def test_viterbi_paths_is_bitwise_repeatable(dev):
+    T, E, keys, valid, _, _ = _problem(44, 37, 300, 32, 89, dev)
+    entry, exit_ = _states(45, 37, 32, dev)
+    a = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+    b = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def _decode_problem(seed, dev):
