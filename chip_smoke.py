@@ -14,9 +14,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    viterbi_paths at S=64, L=512, M=2, 15, 16, 17 and 32, 89 keys, and K5
    also on inputs with exact ties (``tie_problem``: S=13, L=200); all six
    at M=32 with 1000 keys (emission tables past a block's shared memory);
-   K6 boundary_scan (also against its chunked twin) and K7
-   viterbi_boundary on those K3 and K4 operators, laid out as three
-   contigs of uneven length, at M=2, 15, 16, 17 and 32;
+   K6 boundary_scan and K7 viterbi_boundary (each also against its
+   chunked twin) on those K3 and K4 operators, laid out as three contigs
+   of uneven length, at M=2, 15, 16, 17 and 32, and K7 on exact inputs
+   (``k7_exact``: twin states, small integers);
 4. the main path: simulate 2 contigs x 100 Mbp with n=20 (port's
    data/simulate.py, seeded), then ``smcpp_tpu_torch.commands.main estimate
    --em-iterations 2 --device cuda`` at the default knots, spline and w;
@@ -70,6 +71,17 @@ bit-identical (``check_k6``).  Its plan, dependent depth (c + n_chunks + c
 steps, printed beside its bound) and the CUDA-event times of its setup and
 three phases are printed there too (``k6_phases``).
 
+K7 is K6's chunked scan in max-plus, four launches counted as one
+(``ViterbiBoundary``: f64 chunk products, an f64 scan over the chunks, every
+chunk's f32 forward, every chunk's backtrace).  On every input set it must
+equal its chunked twin (``viterbi_boundary_states_chunked_plain``) bit for
+bit, two launches bit-identical; against the sequential loop its states
+must be equal or, in a contig whose states differ, the two paths' f64
+scores within δ (``viterbi_boundary_delta``), equal on exact inputs
+(``check_k7``, which prints the differing-state count, the largest score
+gap beside δ and the entry vectors' distance from the sequential V); its
+plan, depth and the times of its phases are printed (``k7_phases``).
+
 K5 is two launches counted as one (``ViterbiPaths``: the forward sweep,
 writing the backpointers four windows to a word, then the backtrace through
 shared memory).  On every input set it must equal its plain version bit for
@@ -78,12 +90,13 @@ bit-identical and its launches called one at a time must give the wrapper's
 path (``check_k5``); its plan (``viterbi_paths_plan``) is printed there.
 
 Every kernel time is printed beside its bound: the least time the card
-could take for the same work on the same inputs, the larger of its
-operations over the peak rate of their type and the bytes it must move
-(each input read once, each output written once) over the memory rate
-(``bound``, ``scan_bound``).  No single PyTorch call computes any of these
-kernels (each is a serial scan with a renormalisation at every step), so
-``library_ms`` is null.
+could take for the same work on the same inputs, the largest of its
+operations over the rate of their pipe (adds and FMAs at the FMA rate;
+compares, maxima and selects at half that; all of them over the issue
+rate) and the bytes it must move (each input read once, each output
+written once) over the memory rate (``bound``, ``scan_bound``).  No
+single PyTorch call computes any of these kernels (each is a serial scan
+with a renormalisation at every step), so ``library_ms`` is null.
 
 The line before the last is the kernels' JSON record (launches from each
 kernel's own path: K1-K3 and K6 from phase 4's estimate, K2g, K4, K5 and K7
@@ -112,10 +125,15 @@ BF16_ULP = 2.0**-7
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): 67 TFLOP/s in
 # float32 outside the tensor cores, 34 TFLOP/s in float64, 3.35 TB/s of
-# HBM3.  An FMA, add, max or select counts as one operation at the FMA rate
-# (half the FLOP/s figure): 128 float32 and 64 float64 per clock per SM at
-# 1.98 GHz.
+# HBM3.  Three pipes of the 132 SMs at 1.98 GHz: the FMA pipe (an f32 add,
+# multiply or FMA is one operation at half the FLOP/s figure, 128 a clock
+# per SM; 64 in float64), the ALU pipe (an f32 compare, minimum, maximum or
+# select, 64 a clock per SM: the CUDA C++ Programming Guide's throughput
+# table for compute capability 9.0), and issue (128 thread-instructions a
+# clock per SM, whatever the pipe).
 F32_OPS_PER_S = 67e12 / 2
+F32_ALU_PER_S = F32_OPS_PER_S / 2
+THREAD_INSTR_PER_S = F32_OPS_PER_S
 F64_OPS_PER_S = 34e12 / 2
 HBM_BYTES_PER_S = 3.35e12
 # and 67 TFLOP/s in float64 on its tensor cores (mma.sync f64, K3 and K1):
@@ -142,17 +160,21 @@ def card():
     return smi
 
 
-def bound(name, E, keys, valid, elt=4, cuda_cores=False):
+def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False):
     """(bound_ms, bound_by) of one launch of kernel ``name`` on these inputs:
-    the larger of its operations over the peak rate of their type and the
-    bytes it must move (each input read once, each output written once) over
-    the memory rate.  ``elt`` is the byte width of the alpha stream.
+    the larger of its operations over the peak rate of their pipe (and all
+    of them over the issue rate) and the bytes it must move (each input read
+    once, each output written once) over the memory rate.  ``elt`` is the
+    byte width of the alpha stream; ``alu_at_fma`` gives the earlier model:
+    a max or a select one operation at the FMA rate, no issue limit, and
+    K5's candidate an add, a max and a select (no compare).
     Operations count the valid windows (an invalid window skips the step's
     arithmetic); streams count every window.
 
       K3 segment_ops      M^3 f64 FMA per window on the tensor cores, and
                           per carry entry two f32/f64 conversions (f64
-                          rate), a multiply and a max; ``cuda_cores``: M^3
+                          rate), a multiply (FMA pipe) and a max (ALU
+                          pipe); ``cuda_cores``: M^3
                           f32 FMA, the earlier CUDA-core kernel's form of
                           the same work; keys, valid in, (S, M, M) out
       K1 asc_sweep        M^2 f64 FMA per window on the tensor cores (the
@@ -161,18 +183,24 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False):
                           valid, A_in in, the alpha stream out
       K2 dsc_sweep        2 M^2 f32 FMA and M^2 f64 add; the alpha stream in
       K2g dsc_sweep_gamma K2, plus the (S, L, M) f32 gamma stream out
-      K4 viterbi_ops      M^3 add and M^3 max; (S, M, M) out
-      K5 viterbi_paths    3 M^2 add, max and select; (S, L) int32 path out
+      K4 viterbi_ops      M^3 add (FMA pipe) and M^3 max (ALU pipe); (S,
+                          M, M) out
+      K5 viterbi_paths    per candidate (M^2): an add (FMA pipe), then a
+                          compare, a select of the score and a select of
+                          the index (ALU pipe: the first-index argmax
+                          compiles to FSETP, FSEL and SEL); (S, L) int32
+                          path out
     """
     S, L = keys.shape
     n_keys, M = E.shape
     W, nv = S * L, int(valid.sum())
     b = 5 * W + 4 * (M * M + n_keys * M)  # keys, valid, T and E
-    f64 = 0
+    f64 = alu = 0
     if name == "segment_ops":
         b += 4 * S * (M * M + 1)
         if not cuda_cores:
-            return _roofline(2 * nv * M * M, 2 * nv * M * M, b, nv * M**3)
+            return _roofline(nv * M * M, 2 * nv * M * M, b, nv * M**3, nv * M * M,
+                             alu_at_fma)
         f32 = nv * M**3
     elif name == "asc_sweep":
         return _roofline(0, 0, b + W * M * elt + 8 * S * M, nv * M * M)
@@ -182,21 +210,31 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False):
         if name == "dsc_sweep_gamma":
             b += 4 * W * M
     elif name == "viterbi_ops":
-        f32, b = 2 * nv * M**3, b + 4 * S * M * M
+        f32, alu, b = nv * M**3, nv * M**3, b + 4 * S * M * M
     elif name == "viterbi_paths":
-        f32, b = 3 * nv * M * M, b + 4 * W + 8 * S
+        f32, b = nv * M * M, b + 4 * W + 8 * S
+        alu = (2 if alu_at_fma else 3) * nv * M * M
     else:
         raise ValueError(name)
-    return _roofline(f32, f64, b)
+    return _roofline(f32, f64, b, 0, alu, alu_at_fma)
 
 
-def _roofline(f32, f64, b, f64_tc=0):
-    t_ops = max(f32 / F32_OPS_PER_S, f64 / F64_OPS_PER_S, f64_tc / F64_TC_FMA_PER_S)
+def _roofline(f32, f64, b, f64_tc=0, alu=0, alu_at_fma=False):
+    """(ms, bound_by): ``f32`` FMA-pipe operations, ``alu`` ALU-pipe ones,
+    ``f64`` and ``f64_tc`` f64 ones off and on the tensor cores, ``b``
+    bytes.  ``alu_at_fma``: the ALU operations at the FMA rate, no issue
+    limit (the earlier model)."""
+    if alu_at_fma:
+        t_32 = (f32 + alu) / F32_OPS_PER_S
+    else:
+        t_32 = max(f32 / F32_OPS_PER_S, alu / F32_ALU_PER_S,
+                   (f32 + alu) / THREAD_INSTR_PER_S)
+    t_ops = max(t_32, f64 / F64_OPS_PER_S, f64_tc / F64_TC_FMA_PER_S)
     t_bytes = b / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def scan_bound(name, M, S, soc):
+def scan_bound(name, M, S, soc, alu_at_fma=False):
     """(bound_ms, bound_by) of one launch of a per-contig boundary scan over
     the (S, M, M) segment operators laid out by ``soc`` (C, NS): n listed
     segments, each operator read once; padded slots are the identity and
@@ -205,19 +243,21 @@ def scan_bound(name, M, S, soc):
       K6 boundary_scan     2 n M^2 FMA (forward and backward matvecs); ops,
                            logs, pi and soc in, A_in and Q_end (S, M) f32
                            and ll out
-      K7 viterbi_boundary  2 n M^2 add and max; ops, log pi and soc in,
-                           (S,) int32 entry and exit states out
+      K7 viterbi_boundary  per candidate (n M^2) an add, a compare and two
+                           selects, as K5; ops, log pi and soc in, (S,)
+                           int32 entry and exit states out
     """
     soc = np.asarray(soc)
     n = int((soc >= 0).sum())
     b = 4 * n * M * M + 4 * M + 4 * soc.size
     if name == "boundary_scan":
         b += 4 * n + 8 * S * M + 8 * soc.shape[0]
-    elif name == "viterbi_boundary":
-        b += 8 * S
-    else:
+        return _roofline(2 * n * M * M, 0, b)
+    if name != "viterbi_boundary":
         raise ValueError(name)
-    return _roofline(2 * n * M * M, 0, b)
+    # the earlier model: an add and a max a candidate
+    return _roofline(n * M * M, 0, b + 8 * S, 0, (1 if alu_at_fma else 3) * n * M * M,
+                     alu_at_fma)
 
 
 def build():
@@ -677,13 +717,168 @@ def k6_alone(reps=20):
             f"the plan's chunk length, {t[1]:.4f} ms as the sequential scan")
 
 
+def check_k7(tag, pi, W, soc, chunk=None, exact=False):
+    """K7 on one input set at boundary_plan's chunk length (or ``chunk``):
+    two launches bit-identical; equal to its chunked twin
+    (viterbi_boundary_states_chunked_plain) bit for bit; against the
+    sequential loop (viterbi_boundary_states_plain): equal, or, in each
+    contig whose states differ, path scores (viterbi_boundary_path_score)
+    within δ (viterbi_boundary_delta) of each other, and none past it;
+    ``exact`` (inputs whose sums are all exact) asks for equal states.
+    Logs the plan, n_chunks, the dependent depth, the differing-state count,
+    the largest score gap beside δ, and the entry vectors' largest distance
+    from the sequential loop's V at the chunk boundaries (lanes above
+    -1e29).  Raises on a miss.  Returns (K7's states, the twin's CUDA-event
+    ms of one run)."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    socn = np.asarray(soc)
+    C, NS = socn.shape
+    M = W.shape[-1]
+    c = chunk or wk.boundary_plan(NS)[0]
+    got = wk.viterbi_boundary_cuda(pi, W, soc, chunk=c)
+    again = wk.viterbi_boundary_cuda(pi, W, soc, chunk=c)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"viterbi_boundary [{tag}]: two launches differ")
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    twin = wk.viterbi_boundary_states_chunked_plain(pi, W, soc, c)
+    stop.record()
+    torch.cuda.synchronize()
+    for n, g, t in zip(("entry", "exit"), got, twin):
+        check_equal(f"viterbi_boundary [{tag}] {n} (chunked twin)", g, t)
+    seq = wk.viterbi_boundary_states_plain(pi, W, soc)
+    listed = torch.as_tensor(socn[socn >= 0], device=W.device)
+    n_diff = int(sum(int((g[listed] != q[listed]).sum()) for g, q in zip(got, seq)))
+    diff, gap, delta = wk.viterbi_boundary_agreement(pi, W, soc, got, seq)
+    max_gap = float(torch.where(diff, gap, 0.0).max())
+    if bool((diff & (gap > delta)).any()) or (exact and n_diff):
+        raise AssertionError(
+            f"viterbi_boundary [{tag}]: {n_diff} boundary states differ from the "
+            f"sequential loop, largest path-score gap {max_gap!r} against δ "
+            f"{float(delta.max())!r}" + (" (exact inputs)" if exact else ""))
+    # the entry vectors beside the sequential loop's V at each chunk boundary
+    rows, n_chunks = wk._chunk_rows(socn, c)
+    dist = 0.0
+    if n_chunks > 1:
+        k7 = wk.ViterbiBoundary(pi, W, soc, c)
+        k7.products()
+        k7.chunk_scan()
+        entry = k7.entry.view(C, n_chunks, M)
+        rows = rows.reshape(C, n_chunks, c)
+        V = wk._log_pi(pi, W.dtype).expand(C, M)
+        for k in range(n_chunks):
+            ok = V > -1e29
+            if bool(ok.any()):
+                dist = max(dist, float((entry[:, k] - V).abs()[ok].max()))
+            _, V = wk._mp_rows_forward(W, rows[:, k], V)
+    depth = 3 * c + 2 * n_chunks if n_chunks > 1 else 2 * NS
+    log(f"viterbi_boundary [{tag}]: plan c = {c}, n_chunks = {n_chunks}, "
+        f"{C * n_chunks} chunk rows, dependent depth {depth} steps (sequential: "
+        f"{2 * NS}); two launches bit-identical; equal to the chunked twin bit for "
+        f"bit; {n_diff} of {2 * len(listed)} boundary states differ from the "
+        f"sequential loop (largest path-score gap {max_gap!r}, δ {float(delta.max())!r}); "
+        f"entry vectors within {dist!r} of its V at the chunk boundaries")
+    return got, start.elapsed_time(stop)
+
+
+def k7_phases(tag, pi, W, soc, reps=20):
+    """CUDA-event milliseconds of each of K7's phases (ViterbiBoundary) on
+    one input set, mean of ``reps`` runs each after a warm-up: the
+    wrapper's setup (the chunk rows' copy to the card, log pi, the zeroed
+    outputs), then the four launches (each reruns on the same inputs)."""
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    k7 = wk.ViterbiBoundary(pi, W, soc)
+    k7.products()
+    k7.chunk_scan()
+    k7.forward()
+    t = {
+        "setup": cuda_ms(lambda: wk.ViterbiBoundary(pi, W, soc), reps),
+        "vb_products": cuda_ms(k7.products, reps),
+        "vb_chunk_scan": cuda_ms(k7.chunk_scan, reps),
+        "vb_forward": cuda_ms(k7.forward, reps),
+        "vb_trace": cuda_ms(k7.trace, reps),
+    }
+    log(f"K7 phases [{tag}] (c = {k7.chunk}, n_chunks = {k7.n_chunks}), ms: "
+        + ", ".join(f"{n} {v:.4f}" for n, v in t.items()))
+    return t
+
+
+def k7_alone(reps=20):
+    """K7 alone at the cells' contig layouts on random normalised max-plus
+    operators (the posterior's 1 x 6104 at M = 32, the slice's 2 x 3907 at
+    M = 15, C3's 22 x 306 at M = 16): ``check_k7``, ``k7_phases``, and the
+    time of a call at the plan's chunk length beside the sequential scan
+    (``chunk=NS``); then K4's operators of the tie inputs (twin states) and
+    small-integer operators, where K7 must equal the sequential loop.  Not
+    part of ``main``: a quick check and timing of K7 on the card."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    for tag, C, NS, M in [("posterior", 1, 6104, 32), ("slice", 2, 3907, 15),
+                          ("C3", 22, 306, 16)]:
+        rng = np.random.RandomState(SEED)
+        W = rng.uniform(-30.0, 0.0, (C * NS, M, M))
+        W -= W.max((1, 2), keepdims=True)
+        W = torch.as_tensor(W, dtype=torch.float32, device="cuda")
+        pi = torch.as_tensor(rng.dirichlet(np.ones(M)), dtype=torch.float32, device="cuda")
+        soc = np.arange(C * NS).reshape(C, NS)
+        check_k7(tag, pi, W, soc)
+        k7_phases(tag, pi, W, soc, reps)
+        t = [cuda_ms(lambda: wk.viterbi_boundary_cuda(pi, W, soc, chunk=k), reps)
+             for k in (None, NS)]
+        log(f"K7 alone [{tag}, C x NS = {C} x {NS}, M = {M}]: {t[0]:.4f} ms a call at "
+            f"the plan's chunk length, {t[1]:.4f} ms as the sequential scan")
+    k7_exact()
+
+
+def k7_exact():
+    """K7 on inputs whose sums are exact, where it must equal the sequential
+    loop: K4's operators of the tie inputs (twin states a < b, tied at every
+    step; no boundary state may be b) and small-integer operators with 5%
+    -1e30 entries and a pi with a zero (no path may start there), over
+    uneven contigs, at the plan's chunk length and chunks of 3."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    for M in (2, 15, 16, 17, 32):
+        a, b = M // 3, M - 1
+        T, E, keys, valid, _, _ = tie_problem(SEED, 13, 200, M, 89, a, b)
+        W = wk.viterbi_ops_cuda(T, E, keys, valid)
+        pi = torch.full((M,), 1.0 / M, device="cuda")
+        soc = uneven_contigs(13)
+        for chunk in (None, 3):
+            got, _ = check_k7(f"ties M={M} chunk={chunk}", pi, W, soc, chunk, exact=True)
+            if any(bool((g == b).any()) for g in got):
+                raise AssertionError(f"viterbi_boundary [ties M={M}]: the twin state "
+                                     f"{b} was taken over {a}")
+        rng = np.random.RandomState(SEED + M)
+        Wi = rng.randint(-3, 1, (64, M, M)).astype(np.float32)
+        Wi[rng.rand(64, M, M) < 0.05] = -1e30
+        pi = rng.dirichlet(np.ones(M))
+        pi[1] = 0.0
+        pi = torch.as_tensor(pi, dtype=torch.float32, device="cuda")
+        soc = uneven_contigs(64)
+        for chunk in (None, 3):
+            got, _ = check_k7(f"small integers M={M} chunk={chunk}", pi,
+                              torch.as_tensor(Wi, device="cuda"), soc, chunk, exact=True)
+            if bool((got[0][torch.as_tensor(soc[:, 0], device="cuda")] == 1).any()):
+                raise AssertionError(f"viterbi_boundary [small integers M={M}]: a "
+                                     "path starts in a state with pi == 0")
+
+
 def compare_boundary(tag, pi, ops, logs, soc, seg_has, W, reps):
     """K6 on the operators ``ops``, ``logs`` (``check_k6``, then its phase
-    times) and K7 against viterbi_boundary_states_plain on ``W`` (skipped
+    times) and K7 on ``W`` (``check_k7``, then its phase times; skipped
     when W is None), with the contig layout ``soc``; raises on a miss.
     Returns ({kernel name: (max abs err, kernel ms, plain ms, bound ms,
     bound by)}, the sequential loop's outputs (ll, A_in, Q_end, cvalid) and
-    (entry, exit) or None)."""
+    K7's (entry, exit) or None).  K7's plain ms is its chunked twin's."""
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     S, M = ops.shape[0], ops.shape[-1]
@@ -694,13 +889,10 @@ def compare_boundary(tag, pi, ops, logs, soc, seg_has, W, reps):
     rec = {"boundary_scan": (e6, t6, t6p, *scan_bound("boundary_scan", M, S, soc))}
     states = None
     if W is not None:
-        got = wk.viterbi_boundary_cuda(pi, W, soc)
-        states = wk.viterbi_boundary_states_plain(pi, W, soc)
-        e7 = max(check_equal(f"viterbi_boundary [{tag}] entry", got[0], states[0]),
-                 check_equal(f"viterbi_boundary [{tag}] exit", got[1], states[1]))
+        states, t7p = check_k7(tag, pi, W, soc)
+        k7_phases(tag, pi, W, soc)
         t7 = cuda_ms(lambda: wk.viterbi_boundary_cuda(pi, W, soc), reps)
-        t7p = cuda_ms(lambda: wk.viterbi_boundary_states_plain(pi, W, soc), 1)
-        rec["viterbi_boundary"] = (e7, t7, t7p,
+        rec["viterbi_boundary"] = (0.0, t7, t7p,
                                    *scan_bound("viterbi_boundary", M, S, soc))
     NS = np.asarray(soc).shape[1]
     c, n_chunks = wk.boundary_plan(NS)
@@ -758,6 +950,7 @@ def compare_small():
                          torch.any(valid, 1), wk.viterbi_ops_cuda(T, E, keys, valid), 3)
         check_k5(f"ties S=13 L=200 M={M}", *tie_problem(SEED, 13, 200, M, 89,
                                                          M // 3, M - 1))
+    k7_exact()
     S, L, M, nk = 64, 512, 32, 1000
     T, E, keys, valid, A_in, Q_end = problem(SEED, S, L, M, nk)
     for prec in ("highest", "default"):
@@ -1026,6 +1219,16 @@ def posterior_breakdown(im, pi, T, E):
         "boundary states (K7)": scan_bound("viterbi_boundary", M, S, soc),
         "viterbi_paths (K5)": bound("viterbi_paths", E, keys, valid),
     })
+    log("posterior bounds, ms (bound by), compares, maxima and selects at the ALU "
+        "rate with the issue limit / at the FMA rate (the earlier model): "
+        + ", ".join(f"{n} {a[0]:.4f} ({a[1]}) / {b[0]:.4f} ({b[1]})" for n, a, b in [
+            ("viterbi_ops (K4)", bound("viterbi_ops", E, keys, valid),
+             bound("viterbi_ops", E, keys, valid, alu_at_fma=True)),
+            ("boundary states (K7)", scan_bound("viterbi_boundary", M, S, soc),
+             scan_bound("viterbi_boundary", M, S, soc, alu_at_fma=True)),
+            ("viterbi_paths (K5)", bound("viterbi_paths", E, keys, valid),
+             bound("viterbi_paths", E, keys, valid, alu_at_fma=True)),
+        ]))
 
 
 def compare_posterior(im, pi, T, E, n_seg=32):

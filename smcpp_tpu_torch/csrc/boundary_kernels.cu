@@ -12,10 +12,11 @@
 // What bounds them: serial depth.  The arithmetic (2 S M^2 operations) and
 // the bytes (one read of the (S, M, M) operators) are tiny beside the chain
 // of dependent steps, each an M x M matvec (K6) or max-plus matvec (K7)
-// behind a warp reduction.  K7 walks a contig's NS segments in order, NS
-// dependent steps on any card.
+// behind a warp reduction: a sequential scan walks a contig's NS segments
+// in order, NS dependent steps on any card (and K7's backtrace NS more).
 //
-// K6 is a chunked scan, three launches (ops/window_kernel.py:BoundaryScan):
+// Both are chunked scans.  K6 is three launches
+// (ops/window_kernel.py:BoundaryScan):
 // each contig's NS slots are cut into n_chunks chunk rows of c slots
 // (boundary_plan: c a power of two near sqrt(NS)), so the depth is c +
 // n_chunks + c steps in place of NS, and the grid is every chunk row in
@@ -72,12 +73,43 @@
 // the wrappers zero the outputs.  No atomics: two launches are
 // bit-identical.
 //
-// K7 is exact: f32 adds and maxima, as in the plain version, and the
-// backpointer is the first maximizing entry state (torch.max's tie rule), so
-// it reproduces viterbi_boundary_states_plain bit for bit.  One warp per
-// contig; its backtrace reads the (C, NS, M) int8 backpointers eight rows at
-// a time, one byte per lane, and follows the state with a shuffle, so the
-// dependent chain is a shuffle and not a load.
+// K7 is the same chunked scan in max-plus, four launches
+// (ops/window_kernel.py:ViterbiBoundary), on the chunk rows of
+// boundary_plan:
+//
+//   1 vb_products      chunk_products_kernel<MB, true>: the row's max-plus
+//                      product Pi'[i][j] = max_k (W_t[i][k] + Pi[k][j]) in
+//                      genomic order from the max-plus identity (0 on the
+//                      diagonal, -inf off it), in f64; no scaling (f64 holds
+//                      a chunk's sums, sentinels included).  A max-plus
+//                      product rounds only in its adds, so its value does
+//                      not depend on the order of the maxima.
+//   2 vb_chunk_scan    chunk_scan_kernel<MB, true>: one warp per contig,
+//                      from log pi: record x as the chunk's entry vector,
+//                      then x <- Pi (x) x, x <- x - max x, in f64.  Writes the
+//                      entry vectors rounded to f32, (rows, M).
+//   3 vb_forward       one warp per chunk row, from its entry vector: the
+//                      sequential f32 step below over the row's c slots,
+//                      writing the (rows c, M) int8 backpointers; lane i
+//                      also follows its state back to the row's start
+//                      (m_i <- m[bp_i], a shuffle beside the step), which
+//                      gives the row's exit -> entry map exactly.  The
+//                      contig's last row writes the first argmax of its
+//                      final V, the contig's exit state.
+//   4 vb_trace         one warp per chunk row: from the contig's exit state
+//                      back through the later rows' maps (eight at once,
+//                      one byte a lane, followed by shuffle) to this row's
+//                      exit state, then the backtrace of its c slots, and
+//                      each listed segment's entry and exit state.
+//
+// The step (phase 3): V2_i = max_k (W[s][i][k] + V_k) with the first
+// maximizing k as backpointer, then V = V2 - max_i V2: f32 adds and maxima,
+// as in viterbi_boundary_states_plain, and the first maximizing entry state
+// on ties (torch.max's rule).  Only the entry vectors differ from the
+// sequential loop (one f32 rounding of an f64 scan), so K7 equals its
+// chunked twin viterbi_boundary_states_chunked_plain bit for bit; with
+// n_chunks == 1 phases 1-2 are skipped, the entry is log pi and K7 is the
+// sequential loop.
 
 #include "common.cuh"
 
@@ -109,15 +141,17 @@ __device__ __forceinline__ void stage(float* buf, const float* __restrict__ ops,
 
 // ---------------------------------------------------------------------------
 // K6 phase 1: block r forms chunk row r's product Pi = P_{c-1} ... P_0 in
-// f64, rescaled by a power of two after every step.  Each staged f32
+// f64, rescaled by a power of two after every step (MAXPLUS, K7 phase 1:
+// the max-plus product, from the max-plus identity, unscaled).  Each staged f32
 // operator is converted once into an f64 copy laid out [k][i] (transposed)
 // at row stride OS = MB + 2 (16-byte rows, and the conversion's column
 // stores 2-way rather than 32-way bank conflicts); then lane j of warp w
 // owns column j of Pi in rows w RPW .. w RPW + RPW - 1, so a step reads
 // Pi[k][j] once per k and the copy's column k of those rows as double2
-// broadcasts.  Rows and columns past M stay zero in Pi and in the copy.
+// broadcasts.  Rows and columns past M stay zero in the copy, and in Pi
+// (-inf in max-plus, so that they never win a maximum).
 // ---------------------------------------------------------------------------
-template <int MB>
+template <int MB, bool MAXPLUS>
 __global__ void __launch_bounds__(32 * p1_warps(MB)) chunk_products_kernel(
     const float* __restrict__ ops, const int32_t* __restrict__ rows, int c, int M,
     double* __restrict__ prod) {
@@ -146,9 +180,10 @@ __global__ void __launch_bounds__(32 * p1_warps(MB)) chunk_products_kernel(
   }
   const int32_t* rs = rows + (size_t)blockIdx.x * c;
   for (int t = tid; t < c; t += NT) ids[t] = rs[t];
+  const double ONE = MAXPLUS ? 0.0 : 1.0, ZERO = MAXPLUS ? -INFINITY : 0.0;
   for (int e = tid; e < MB * MB; e += NT) {
     const int i = e / MB;
-    P[e] = (i == e - i * MB && i < M) ? 1.0 : 0.0;
+    P[e] = (i == e - i * MB && i < M) ? ONE : ZERO;
   }
   for (int e = tid; e < MB * OS; e += NT) opT[e] = 0.0;
   __syncthreads();
@@ -173,9 +208,13 @@ __global__ void __launch_bounds__(32 * p1_warps(MB)) chunk_products_kernel(
       for (int q = 0; q < NE; ++q)
         if (tr[q] >= 0) opT[tr[q]] = (double)op[tid + NT * q];  // this thread's own copies
       __syncthreads();  // opT is whole
+      // acc[r] <- acc[r] + o pk, or max(acc[r], o + pk) in max-plus
+      auto step = [](double o, double pk, double acc) {
+        return MAXPLUS ? fmax(acc, o + pk) : fma(o, pk, acc);
+      };
       double acc[RPW];
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) acc[r] = 0.0;
+      for (int r = 0; r < RPW; ++r) acc[r] = ZERO;
 #pragma unroll
       for (int k = 0; k < MB; ++k) {
         const double pk = P[k * MB + j];
@@ -184,29 +223,35 @@ __global__ void __launch_bounds__(32 * p1_warps(MB)) chunk_products_kernel(
 #pragma unroll
           for (int r = 0; r < RPW; r += 2) {
             const double2 v = *reinterpret_cast<const double2*>(o + r);
-            acc[r] = fma(v.x, pk, acc[r]);
-            acc[r + 1] = fma(v.y, pk, acc[r + 1]);
+            acc[r] = step(v.x, pk, acc[r]);
+            acc[r + 1] = step(v.y, pk, acc[r + 1]);
           }
         } else {
 #pragma unroll
-          for (int r = 0; r < RPW; ++r) acc[r] = fma(o[r], pk, acc[r]);
+          for (int r = 0; r < RPW; ++r) acc[r] = step(o[r], pk, acc[r]);
         }
       }
-      double mx = 0.0;
+      double scale = 1.0;
+      if constexpr (MAXPLUS) {
+        __syncthreads();  // every thread has read Pi and opT
+      } else {
+        double mx = 0.0;
+#pragma unroll
+        for (int r = 0; r < RPW; ++r)
+          if (lane < M && i0 + r < M) mx = fmax(mx, fabs(acc[r]));
+        mx = warp_max(mx);
+        if (lane == 0) wmax[warp] = mx;
+        __syncthreads();  // every thread has read Pi and opT and posted its maximum
+#pragma unroll
+        for (int w = 0; w < NW; ++w) mx = fmax(mx, wmax[w]);
+        int ex;
+        frexp(mx, &ex);  // mx = f 2^ex, f in [0.5, 1): scaled, it lies in [1, 2)
+        scale = ldexp(1.0, 1 - ex);
+      }
 #pragma unroll
       for (int r = 0; r < RPW; ++r)
-        if (lane < M && i0 + r < M) mx = fmax(mx, fabs(acc[r]));
-      mx = warp_max(mx);
-      if (lane == 0) wmax[warp] = mx;
-      __syncthreads();  // every thread has read Pi and opT and posted its maximum
-#pragma unroll
-      for (int w = 0; w < NW; ++w) mx = fmax(mx, wmax[w]);
-      int ex;
-      frexp(mx, &ex);  // mx = f 2^ex, f in [0.5, 1): scaled, it lies in [1, 2)
-      const double scale = ldexp(1.0, 1 - ex);
-#pragma unroll
-      for (int r = 0; r < RPW; ++r)
-        if (lane < M && i0 + r < M) P[(i0 + r) * MB + lane] = acc[r] * scale;
+        if (lane < M && i0 + r < M)
+          P[(i0 + r) * MB + lane] = MAXPLUS ? acc[r] : acc[r] * scale;
     }
     __syncthreads();  // Pi is written and slot t is free before it is refilled
   }
@@ -220,8 +265,10 @@ __global__ void __launch_bounds__(32 * p1_warps(MB)) chunk_products_kernel(
 // ---------------------------------------------------------------------------
 // K6 phase 2: block (contig, direction) of one warp scans the contig's
 // n_chunks products in f64 and writes each chunk's start vector in f32.
+// MAXPLUS (K7 phase 2): forward only, from log pi (``pi``), x <- Pi (x) x
+// then x <- x - max x; lanes past M hold -inf.
 // ---------------------------------------------------------------------------
-template <int MB>
+template <int MB, bool MAXPLUS>
 __global__ void __launch_bounds__(32) chunk_scan_kernel(
     const double* __restrict__ prod, const float* __restrict__ pi, int n_chunks, int M,
     float* __restrict__ start_a, float* __restrict__ start_q) {
@@ -247,7 +294,7 @@ __global__ void __launch_bounds__(32) chunk_scan_kernel(
     }
     cp_async_commit();
   };
-  double x = live ? (fwd ? (double)pi[lane] : 1.0) : 0.0;  // a or q
+  double x = live ? (fwd ? (double)pi[lane] : 1.0) : (MAXPLUS ? -INFINITY : 0.0);
   for (int n = 0; n < P2_RING - 1; ++n) stage2(n);
   for (int n = 0; n < n_chunks; ++n) {
     stage2(n + P2_RING - 1);
@@ -256,8 +303,14 @@ __global__ void __launch_bounds__(32) chunk_scan_kernel(
     xs[lane] = x;
     __syncwarp();
     const double* p = ring + (n % P2_RING) * BUF;
-    double acc0 = 0.0, acc1 = 0.0;  // two chains halve the dependent FMAs
-    if (fwd) {
+    double acc0 = MAXPLUS ? -INFINITY : 0.0, acc1 = acc0;  // two dependent chains
+    if constexpr (MAXPLUS) {
+#pragma unroll
+      for (int j = 0; j < MB; j += 2) {
+        acc0 = fmax(acc0, p[lane * SP + j] + xs[j]);
+        acc1 = fmax(acc1, p[lane * SP + j + 1] + xs[j + 1]);
+      }
+    } else if (fwd) {
 #pragma unroll
       for (int j = 0; j < MB; j += 2) {
         acc0 = fma(p[lane * SP + j], xs[j], acc0);
@@ -270,8 +323,13 @@ __global__ void __launch_bounds__(32) chunk_scan_kernel(
         acc1 = fma(p[(i + 1) * SP + lane], xs[i + 1], acc1);
       }
     }
-    const double y = live ? acc0 + acc1 : 0.0;
-    x = fwd ? y / warp_sum(y) : y / fmax(warp_max(y), DBL_MIN);
+    if constexpr (MAXPLUS) {
+      const double y = live ? fmax(acc0, acc1) : -INFINITY;
+      x = y - warp_max(y);
+    } else {
+      const double y = live ? acc0 + acc1 : 0.0;
+      x = fwd ? y / warp_sum(y) : y / fmax(warp_max(y), DBL_MIN);
+    }
     __syncwarp();  // every lane is done with the product and xs before refills
   }
 }
@@ -351,35 +409,36 @@ __global__ void __launch_bounds__(64) boundary_finish_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K7: one warp per contig.  Per slot: V2_i = max_k (W[s][i][k] + V_k) with
-// the first maximizing k as backpointer bp_i, then V = V2 - max_i V2; V
-// starts at log pi.  Then the exit state is the first argmax of the final
-// V, and walking back, exit[t] = state, state = bp[t][state], entry[t] =
-// state.
+// K7 phase 3: warp r runs chunk row r from its entry vector.  Per slot:
+// V2_i = max_k (W[s][i][k] + V_k) with the first maximizing k as backpointer
+// bp_i, then V = V2 - max_i V2, and m_i = m[bp_i] (m starts as the
+// identity, so it ends as the row's exit -> entry map).  The contig's last
+// row writes the first argmax of its final V: the contig's exit state.
 // ---------------------------------------------------------------------------
 template <int MB>
-__global__ void __launch_bounds__(32) viterbi_boundary_kernel(
-    const float* __restrict__ W, const float* __restrict__ logpi,
-    const int32_t* __restrict__ soc, int NS, int M, int8_t* bp,
-    int32_t* __restrict__ seg_entry, int32_t* __restrict__ seg_exit) {
+__global__ void __launch_bounds__(32) vb_forward_kernel(
+    const float* __restrict__ W, const float* __restrict__ entry,
+    const int32_t* __restrict__ rows, int c, int n_chunks, int M,
+    int8_t* __restrict__ bp, int8_t* __restrict__ maps, int32_t* __restrict__ cexit) {
   constexpr int SP = MB + 1;
   constexpr int BUF = ROWS * SP;
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x;
+  const int r = blockIdx.x;
   for (int idx = lane; idx < 2 * BUF; idx += 32) smem[idx] = 0.f;
   __syncwarp();
 
-  const int32_t* sc = soc + (size_t)c * NS;
-  int8_t* bc = bp + (size_t)c * NS * M;
+  const int32_t* sc = rows + (size_t)r * c;
+  int8_t* br = bp + (size_t)r * c * M;
   const bool live = lane < M;
-  float V = live ? logpi[lane] : -INFINITY;
+  float V = live ? entry[(size_t)r * M + lane] : -INFINITY;
+  int m = lane;  // the state at the row's start that state `lane` came from
   int s = sc[0];
-  int s_next = NS > 1 ? sc[1] : -1;
+  int s_next = c > 1 ? sc[1] : -1;
   stage<SP>(smem, W, s, M, lane);
-  for (int n = 0; n < NS; ++n) {
+  for (int n = 0; n < c; ++n) {
     const float* cur = smem + (n & 1) * BUF;
-    const int s_after = n + 2 < NS ? sc[n + 2] : -1;
+    const int s_after = n + 2 < c ? sc[n + 2] : -1;
     stage<SP>(smem + ((n + 1) & 1) * BUF, W, s_next, M, lane);
     cp_async_wait<1>();
     __syncwarp();
@@ -402,23 +461,58 @@ __global__ void __launch_bounds__(32) viterbi_boundary_kernel(
     const float V2 = live ? best : -INFINITY;
     const float mx = warp_max(V2);  // every lane takes part in the butterfly
     V = live ? V2 - mx : -INFINITY;
-    if (live) bc[(size_t)n * M + lane] = (int8_t)arg;
+    m = __shfl_sync(FULL, m, arg);  // arg < M on every lane
+    if (live) br[(size_t)n * M + lane] = (int8_t)arg;
     __syncwarp();  // every lane is done with `cur` before it is refilled
     s = s_next;
     s_next = s_after;
   }
+  if (live) maps[(size_t)r * M + lane] = (int8_t)m;
+  if (r % n_chunks == n_chunks - 1) {  // the contig's last row (warp-uniform)
+    const float vmax = warp_max(V);
+    const unsigned hit = __ballot_sync(FULL, live && V == vmax);
+    if (lane == 0) cexit[r / n_chunks] = hit ? __ffs(hit) - 1 : 0;
+  }
+}
 
-  // the exit state of the last slot: the first maximal entry of V
-  const float vmax = warp_max(V);
-  const unsigned hit = __ballot_sync(FULL, live && V == vmax);
-  int state = hit ? __ffs(hit) - 1 : 0;  // warp-uniform
-  __syncwarp();  // the backpointers of every lane are visible to all
-  for (int t0 = NS - 1; t0 >= 0; t0 -= TRACE_ROWS) {
+// ---------------------------------------------------------------------------
+// K7 phase 4: warp r walks from its contig's exit state back through the
+// maps of the contig's later rows to row r's exit state, then back through
+// the row's c backpointer rows: exit[t] = state, state = bp[t][state],
+// entry[t] = state.  Both walks load TRACE_ROWS rows at once, one byte a
+// lane, and follow the state with a shuffle, so the dependent chain is a
+// shuffle and not a load.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(32) vb_trace_kernel(
+    const int32_t* __restrict__ rows, const int8_t* __restrict__ bp,
+    const int8_t* __restrict__ maps, const int32_t* __restrict__ cexit, int c,
+    int n_chunks, int M, int32_t* __restrict__ seg_entry,
+    int32_t* __restrict__ seg_exit) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x;
+  const int k = r % n_chunks;
+  const bool live = lane < M;
+  const int8_t* mc = maps + (size_t)(r - k) * M;  // the contig's first row's map
+  int state = cexit[r / n_chunks];  // warp-uniform
+  for (int n0 = n_chunks - 1; n0 > k; n0 -= TRACE_ROWS) {
+    int row[TRACE_ROWS];
+#pragma unroll
+    for (int d = 0; d < TRACE_ROWS; ++d) {
+      const int n = n0 - d;
+      row[d] = (n > k && live) ? mc[(size_t)n * M + lane] : 0;
+    }
+#pragma unroll
+    for (int d = 0; d < TRACE_ROWS; ++d)
+      if (n0 - d > k) state = __shfl_sync(FULL, row[d], state);
+  }
+  const int32_t* sc = rows + (size_t)r * c;
+  const int8_t* br = bp + (size_t)r * c * M;
+  for (int t0 = c - 1; t0 >= 0; t0 -= TRACE_ROWS) {
     int row[TRACE_ROWS];
 #pragma unroll
     for (int d = 0; d < TRACE_ROWS; ++d) {
       const int t = t0 - d;
-      row[d] = (t >= 0 && live) ? bc[(size_t)t * M + lane] : 0;
+      row[d] = (t >= 0 && live) ? br[(size_t)t * M + lane] : 0;
     }
 #pragma unroll
     for (int d = 0; d < TRACE_ROWS; ++d) {
@@ -437,34 +531,41 @@ __global__ void __launch_bounds__(32) viterbi_boundary_kernel(
 
 extern "C" {
 
-// K6 phase 1.  ops (S, M, M) f32; rows (R, c) int32 segment ids (-1:
-// padded).  Writes prod (R, M, M) f64.
+// K6 phase 1, and K7 phase 1 (maxplus != 0).  ops (S, M, M) f32; rows (R,
+// c) int32 segment ids (-1: padded).  Writes prod (R, M, M) f64.
 int smcpp_boundary_products(const float* ops, const int32_t* rows, int R, int c, int M,
-                            double* prod, void* stream) {
+                            int maxplus, double* prod, void* stream) {
   if (M < 2 || M > 32 || R <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
   const int MBV = padded(M);
   cudaStream_t st = (cudaStream_t)stream;
   SMCPP_DISPATCH(MBV, {
     const size_t smem = sizeof(double) * MB_ * (2 * MB_ + 2) +
                         sizeof(float) * P1_RING * MB_ * MB_ + sizeof(int) * (size_t)c;
-    const int e = prepare(chunk_products_kernel<MB_>, smem);  // a long forced chunk
+    auto k = maxplus ? chunk_products_kernel<MB_, true> : chunk_products_kernel<MB_, false>;
+    const int e = prepare(k, smem);  // a long forced chunk
     if (e) return e;
-    chunk_products_kernel<MB_><<<R, 32 * p1_warps(MB_), smem, st>>>(ops, rows, c, M, prod);
+    k<<<R, 32 * p1_warps(MB_), smem, st>>>(ops, rows, c, M, prod);
   });
   return (int)cudaGetLastError();
 }
 
 // K6 phase 2.  prod (C n_chunks, M, M) f64; pi (M,) f32.  Writes start_a,
-// start_q (C n_chunks, M) f32.
+// start_q (C n_chunks, M) f32.  K7 phase 2 (maxplus != 0): pi is log pi,
+// and only start_a (the entry vectors) is written.
 int smcpp_boundary_chunk_scan(const double* prod, const float* pi, int C, int n_chunks,
-                              int M, float* start_a, float* start_q, void* stream) {
+                              int M, int maxplus, float* start_a, float* start_q,
+                              void* stream) {
   if (M < 2 || M > 32 || C <= 0 || n_chunks <= 0) return (int)cudaErrorInvalidValue;
   const int MBV = padded(M);
   cudaStream_t st = (cudaStream_t)stream;
   SMCPP_DISPATCH(MBV, {
     const size_t smem = sizeof(double) * (P2_RING * ROWS * (MB_ + 1) + 32);
-    chunk_scan_kernel<MB_><<<dim3(C, 2), 32, smem, st>>>(prod, pi, n_chunks, M, start_a,
-                                                        start_q);
+    if (maxplus)
+      chunk_scan_kernel<MB_, true><<<dim3(C, 1), 32, smem, st>>>(prod, pi, n_chunks, M,
+                                                                start_a, start_q);
+    else
+      chunk_scan_kernel<MB_, false><<<dim3(C, 2), 32, smem, st>>>(prod, pi, n_chunks, M,
+                                                                 start_a, start_q);
   });
   return (int)cudaGetLastError();
 }
@@ -489,19 +590,35 @@ int smcpp_boundary_finish(const float* ops, const float* logs, const int32_t* ro
   return (int)cudaGetLastError();
 }
 
-// W (S, M, M), logpi (M,) f32; soc (C, NS) int32; bp (C, NS, M) int8
-// scratch.  Writes the listed entries of seg_entry, seg_exit (S,) int32.
-int smcpp_viterbi_boundary(const float* W, const float* logpi, const int32_t* soc,
-                           int C, int NS, int M, int8_t* bp, int32_t* seg_entry,
-                           int32_t* seg_exit, void* stream) {
-  if (M < 2 || M > 32 || C <= 0 || NS <= 0) return (int)cudaErrorInvalidValue;
+// K7 phase 3.  W (S, M, M) f32; entry (R, M) f32; rows (R, c) int32.
+// Writes bp (R c, M) int8, maps (R, M) int8 and cexit (R / n_chunks,) int32.
+int smcpp_viterbi_boundary_forward(const float* W, const float* entry,
+                                   const int32_t* rows, int R, int c, int n_chunks,
+                                   int M, int8_t* bp, int8_t* maps, int32_t* cexit,
+                                   void* stream) {
+  if (M < 2 || M > 32 || R <= 0 || c <= 0 || n_chunks <= 0 || R % n_chunks)
+    return (int)cudaErrorInvalidValue;
   const int MBV = padded(M);
   const size_t smem = sizeof(float) * 2 * ROWS * (size_t)(MBV + 1);
   cudaStream_t st = (cudaStream_t)stream;
   SMCPP_DISPATCH(MBV, {
-    viterbi_boundary_kernel<MB_><<<C, 32, smem, st>>>(W, logpi, soc, NS, M, bp, seg_entry,
-                                                      seg_exit);
+    vb_forward_kernel<MB_><<<R, 32, smem, st>>>(W, entry, rows, c, n_chunks, M, bp, maps,
+                                                cexit);
   });
+  return (int)cudaGetLastError();
+}
+
+// K7 phase 4.  rows (R, c) int32; bp (R c, M), maps (R, M) int8; cexit (R /
+// n_chunks,) int32.  Writes the listed entries of seg_entry, seg_exit (S,)
+// int32.
+int smcpp_viterbi_boundary_trace(const int32_t* rows, const int8_t* bp,
+                                 const int8_t* maps, const int32_t* cexit, int R, int c,
+                                 int n_chunks, int M, int32_t* seg_entry,
+                                 int32_t* seg_exit, void* stream) {
+  if (M < 2 || M > 32 || R <= 0 || c <= 0 || n_chunks <= 0 || R % n_chunks)
+    return (int)cudaErrorInvalidValue;
+  vb_trace_kernel<<<R, 32, 0, (cudaStream_t)stream>>>(rows, bp, maps, cexit, c, n_chunks,
+                                                       M, seg_entry, seg_exit);
   return (int)cudaGetLastError();
 }
 

@@ -52,12 +52,15 @@ _SIGNATURES = {
         "smcpp_viterbi_paths_back": [_P, _I, _I, _I, _P, _P, _P],
     },
     "boundary_kernels.cu": {
-        "smcpp_boundary_products": [_P, _P, _I, _I, _I, _P, _P],
-        "smcpp_boundary_chunk_scan": [_P, _P, _I, _I, _I, _P, _P, _P],
+        "smcpp_boundary_products": [_P, _P, _I, _I, _I, _I, _P, _P],
+        "smcpp_boundary_chunk_scan": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
         "smcpp_boundary_finish": [
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
         ],
-        "smcpp_viterbi_boundary": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "smcpp_viterbi_boundary_forward": [
+            _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+        ],
+        "smcpp_viterbi_boundary_trace": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     },
 }
 

@@ -25,15 +25,18 @@ operators (K4), a per-contig scan over them for the boundary states and its
 backtrace (K7), then each segment's interior path from its entry state
 (K5).
 
-Each of K1-K5 is a serial loop over the windows of a segment, and K7 a
-serial loop over the segments of a contig.  K6 is a chunked scan in three
-launches (``BoundaryScan``): each contig's segments are cut into chunks of
-c (``boundary_plan``), every chunk's operator product is formed at once in
-f64 (phase 1), a short f64 scan over each contig's chunk products gives
-every chunk's entry and exit vectors (phase 2), and every chunk is then
-walked at once in f32 from those vectors (phase 3), so its depth is c +
-n_chunks + c steps in place of the contig's length; its plain twin is
-``contig_boundaries_chunked_plain``.  On a CUDA tensor they run as
+Each of K1-K5 is a serial loop over the windows of a segment.  K6 is a
+chunked scan in three launches (``BoundaryScan``): each contig's segments
+are cut into chunks of c (``boundary_plan``), every chunk's operator
+product is formed at once in f64 (phase 1), a short f64 scan over each
+contig's chunk products gives every chunk's entry and exit vectors (phase
+2), and every chunk is then walked at once in f32 from those vectors (phase
+3), so its depth is c + n_chunks + c steps in place of the contig's length;
+its plain twin is ``contig_boundaries_chunked_plain``.  K7 is the same scan
+in max-plus in four launches (``ViterbiBoundary``), the fourth a backtrace
+of every chunk at once from its exit state, found through each chunk's
+exit -> entry map; its plain twin is
+``viterbi_boundary_states_chunked_plain``.  On a CUDA tensor they run as
 the hand-written kernels in csrc/*.cu; on a CPU tensor they run as the
 plain PyTorch loops in this module (the same arithmetic, f32 or f64).  A
 CUDA tensor never falls back to the plain version: the wrapper launches its
@@ -587,6 +590,15 @@ def boundary_plan(NS):
     return c, -(-NS // c)
 
 
+def _plan_chunk(NS, chunk):
+    "The chunk length: ``chunk`` (forced, for tests) or boundary_plan's."
+    if chunk is None:
+        return boundary_plan(NS)[0]
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    return chunk
+
+
 def _chunk_rows(socn, chunk):
     """The contig table (C, NS) padded with -1 to (C, n_chunks chunk) and
     viewed as (C n_chunks, chunk) chunk rows, in the table's dtype; returns
@@ -636,10 +648,7 @@ class BoundaryScan:
         dev = ops.device
         if logs.dtype != torch.float32 or tuple(logs.shape) != (S,):
             raise ValueError(f"logs must be float32 ({S},)")
-        if chunk is None:
-            chunk = boundary_plan(NS)[0]
-        elif chunk < 1:
-            raise ValueError(f"chunk must be at least 1, got {chunk}")
+        chunk = _plan_chunk(NS, chunk)
         rows, n_chunks = _chunk_rows(socn, chunk)
         self.chunk, self.n_chunks, self.M, self.C = chunk, n_chunks, M, C
         self.ops, self.logs = ops, logs.contiguous()
@@ -666,7 +675,7 @@ class BoundaryScan:
         if self.n_chunks > 1:
             _cuda.check(self._lib.smcpp_boundary_products(
                 self.ops.data_ptr(), self.rows.data_ptr(), self.rows.shape[0],
-                self.chunk, self.M, self.prod.data_ptr(), self._stream,
+                self.chunk, self.M, 0, self.prod.data_ptr(), self._stream,
             ), BOUNDARY_SCAN.name)
 
     def chunk_scan(self):
@@ -674,7 +683,7 @@ class BoundaryScan:
         if self.n_chunks > 1:
             _cuda.check(self._lib.smcpp_boundary_chunk_scan(
                 self.prod.data_ptr(), self.pi.data_ptr(), self.C, self.n_chunks,
-                self.M, self.start_a.data_ptr(), self.start_q.data_ptr(),
+                self.M, 0, self.start_a.data_ptr(), self.start_q.data_ptr(),
                 self._stream,
             ), BOUNDARY_SCAN.name)
 
@@ -703,38 +712,117 @@ def boundary_scan_cuda(pi, ops, logs, seg_of_contig, seg_has, chunk=None):
     return k6.finish()
 
 
-def viterbi_boundary_cuda(pi, Wops, seg_of_contig):
-    """K7 (replaces window_kernel.py:viterbi_boundary_states).
+class ViterbiBoundary:
+    """One launch of K7 (replaces the JAX package's window_kernel.py:815,
+    viterbi_boundary_states), phase by phase: construct it, then call
+    ``products()``, ``chunk_scan()``, ``forward()`` and ``trace()`` in
+    order on the current stream (``viterbi_boundary_cuda`` does; the phases
+    are separate so that each can be timed).
 
-    What bounds it: serial depth, NS dependent max-plus steps per contig and
-    then a backtrace of NS dependent steps.  Design: K6's forward in
-    max-plus, one warp per contig, lane i owns V[i] and reads row i of the
-    staged operator; the backpointer is the first maximizing entry state
-    (torch.max's and jnp.argmax's tie rule), stored in a (C, NS, M) int8
-    device scratch.  The warp then walks it back from the first argmax of
-    the final V, loading eight rows at once and following the state by
-    shuffle, and writes each listed segment's entry and exit state.  Exact:
-    adds and maxima only, so it equals the plain version bit for bit.  No
-    host copy.  Returns (seg_entry (S,), seg_exit (S,)) int32."""
-    socn, M = _check_boundary_inputs(Wops, seg_of_contig)
-    C, NS = socn.shape
-    S = Wops.shape[0]
-    dev = Wops.device
-    soc = torch.as_tensor(socn, device=dev)
-    logpi = _log_pi(pi.to(dev), Wops.dtype).contiguous()
-    bp = torch.empty((C, NS, M), dtype=torch.int8, device=dev)
-    seg_entry = torch.zeros((S,), dtype=torch.int32, device=dev)
-    seg_exit = torch.zeros((S,), dtype=torch.int32, device=dev)
-    lib = _cuda.lib()
+    What bounds it: serial depth.  The work (n M^2 adds and maxima over n
+    listed segments, one read of the operators) is tiny; a sequential scan
+    takes NS dependent max-plus steps per contig and its backtrace NS more.
+    Design (csrc/boundary_kernels.cu): K6's chunked scan in max-plus, on the
+    same chunk rows of c slots (``boundary_plan``, or ``chunk``), so the
+    depth is about c + n_chunks + c + (n_chunks + c) steps:
+
+      products()    phase 1, one block per chunk row: the row's max-plus
+                    product in f64, from the max-plus identity;
+      chunk_scan()  phase 2, one warp per contig: the f64 max-plus scan over
+                    its chunk products from log pi, normalised to a maximum
+                    of 0 after each, writing every chunk's entry vector in
+                    f32;
+      forward()     phase 3, one warp per chunk row: the sequential f32 step
+                    of the plain version from the row's entry vector,
+                    writing int8 backpointers (rows c, M), the row's exit ->
+                    entry map (rows, M) and each contig's exit state (the
+                    first argmax of its last row's final V);
+      trace()       phase 4, one warp per chunk row: the contig's exit state
+                    back through the later rows' maps to the row's exit
+                    state, then the backtrace of its c slots; returns
+                    (seg_entry (S,), seg_exit (S,)) int32, 0 at unlisted
+                    segments.
+
+    Max-plus rounds only in its adds, so only the entry vectors differ from
+    the sequential loop (one f32 rounding of an f64 scan), and K7 equals its
+    chunked twin ``viterbi_boundary_states_chunked_plain`` bit for bit.
+    With n_chunks == 1 phases 1-2 do nothing and phase 3 starts from log pi:
+    the sequential scan, equal to ``viterbi_boundary_states_plain``.  The
+    device copy of the chunk rows is made from pinned memory without a host
+    sync; no atomics (two launches are bit-identical); every phase checks
+    its launch and raises on failure."""
+
+    def __init__(self, pi, Wops, seg_of_contig, chunk=None):
+        socn, M = _check_boundary_inputs(Wops, seg_of_contig)
+        C, NS = socn.shape
+        S = Wops.shape[0]
+        dev = Wops.device
+        chunk = _plan_chunk(NS, chunk)
+        rows, n_chunks = _chunk_rows(socn, chunk)
+        R = rows.shape[0]
+        self.chunk, self.n_chunks, self.M, self.C = chunk, n_chunks, M, C
+        self.W = Wops
+        self.rows = torch.from_numpy(rows).pin_memory().to(dev, non_blocking=True)
+        self.logpi = _log_pi(pi.to(dev), torch.float32).contiguous()
+        self.bp = torch.empty((R * chunk, M), dtype=torch.int8, device=dev)
+        self.maps = torch.empty((R, M), dtype=torch.int8, device=dev)
+        self.cexit = torch.empty((C,), dtype=torch.int32, device=dev)
+        self.seg_entry = torch.zeros((S,), dtype=torch.int32, device=dev)
+        self.seg_exit = torch.zeros((S,), dtype=torch.int32, device=dev)
+        if n_chunks > 1:
+            self.prod = torch.empty((R, M, M), dtype=torch.float64, device=dev)
+            self.entry = torch.empty((R, M), dtype=torch.float32, device=dev)
+        else:
+            self.entry = self.logpi.expand(C, M).contiguous()
+        self._stream = _stream(dev)
+        self._lib = _cuda.lib()
+
+    def products(self):
+        "Phase 1 (skipped with one chunk a contig)."
+        if self.n_chunks > 1:
+            _cuda.check(self._lib.smcpp_boundary_products(
+                self.W.data_ptr(), self.rows.data_ptr(), self.rows.shape[0],
+                self.chunk, self.M, 1, self.prod.data_ptr(), self._stream,
+            ), VITERBI_BOUNDARY.name)
+
+    def chunk_scan(self):
+        "Phase 2 (skipped with one chunk a contig)."
+        if self.n_chunks > 1:
+            _cuda.check(self._lib.smcpp_boundary_chunk_scan(
+                self.prod.data_ptr(), self.logpi.data_ptr(), self.C, self.n_chunks,
+                self.M, 1, self.entry.data_ptr(), 0, self._stream,
+            ), VITERBI_BOUNDARY.name)
+
+    def forward(self):
+        "Phase 3."
+        _cuda.check(self._lib.smcpp_viterbi_boundary_forward(
+            self.W.data_ptr(), self.entry.data_ptr(), self.rows.data_ptr(),
+            self.rows.shape[0], self.chunk, self.n_chunks, self.M,
+            self.bp.data_ptr(), self.maps.data_ptr(), self.cexit.data_ptr(),
+            self._stream,
+        ), VITERBI_BOUNDARY.name)
+
+    def trace(self):
+        "Phase 4; returns (seg_entry (S,), seg_exit (S,)) int32."
+        _cuda.check(self._lib.smcpp_viterbi_boundary_trace(
+            self.rows.data_ptr(), self.bp.data_ptr(), self.maps.data_ptr(),
+            self.cexit.data_ptr(), self.rows.shape[0], self.chunk, self.n_chunks,
+            self.M, self.seg_entry.data_ptr(), self.seg_exit.data_ptr(),
+            self._stream,
+        ), VITERBI_BOUNDARY.name)
+        return self.seg_entry, self.seg_exit
+
+
+def viterbi_boundary_cuda(pi, Wops, seg_of_contig, chunk=None):
+    """K7: the four launches of ``ViterbiBoundary``, counted as one.
+    ``chunk`` forces the chunk length (for tests; None takes
+    ``boundary_plan``'s).  Returns (seg_entry (S,), seg_exit (S,)) int32."""
+    k7 = ViterbiBoundary(pi, Wops, seg_of_contig, chunk)
     VITERBI_BOUNDARY.launches += 1
-    _cuda.check(
-        lib.smcpp_viterbi_boundary(
-            Wops.data_ptr(), logpi.data_ptr(), soc.data_ptr(), C, NS, M,
-            bp.data_ptr(), seg_entry.data_ptr(), seg_exit.data_ptr(), _stream(dev),
-        ),
-        VITERBI_BOUNDARY.name,
-    )
-    return seg_entry, seg_exit
+    k7.products()
+    k7.chunk_scan()
+    k7.forward()
+    return k7.trace()
 
 
 # ---------------------------------------------------------------------------
@@ -1296,47 +1384,221 @@ def viterbi_boundary_states(pi, Wops, seg_of_contig):
 
 def _log_pi(pi, dt):
     """log pi in ``dt``.  A pi == 0 state carries the max-plus 'impossible'
-    score, not log(tiny): per-segment operator spreads exceed that."""
-    return torch.where(
-        pi > 0, torch.log(torch.clamp(pi, min=1e-300)), _mp_neg(pi.dtype, pi.device)
-    ).to(dt)
+    score, not log(tiny): per-segment operator spreads exceed that.  The
+    sentinel is a Python scalar (rounded to pi's dtype, as ``_mp_neg``), so
+    a CUDA pi needs no copy from the host, which would wait for the work
+    queued before it."""
+    return torch.where(pi > 0, torch.log(torch.clamp(pi, min=1e-300)), -1e30).to(dt)
+
+
+def _mp_rows_forward(Wops, rows, V):
+    """The sequential max-plus forward over the rows of ``rows`` (R, n)
+    segment ids (-1: a padded slot, the max-plus identity), batched over
+    the rows, from V (R, M) in Wops's dtype: per slot V2_i = max_k (W[i][k]
+    + V_k) with the first maximizing k as backpointer, then V = V2 - max
+    V2.  Returns (bp (R, n, M) int64, the final V (R, M))."""
+    rows = np.asarray(rows)
+    M = Wops.shape[-1]
+    dt, dev = Wops.dtype, Wops.device
+    eyemp = torch.where(torch.eye(M, dtype=torch.bool, device=dev), 0.0,
+                        _mp_neg(dt, dev))
+    pad = torch.as_tensor(rows < 0, device=dev)
+    idx = torch.as_tensor(np.maximum(rows, 0), device=dev)
+    ops_c = torch.where(pad[:, :, None, None], eyemp, Wops[idx])  # (R, n, i, k)
+    bps = []
+    for t in range(rows.shape[1]):
+        sc = ops_c[:, t] + V[:, None, :]  # (R, i, k)
+        V2, bp = torch.max(sc, 2)  # ties: the first maximal entry state
+        V = V2 - torch.amax(V2, 1, keepdim=True)
+        bps.append(bp)
+    return torch.stack(bps, 1), V
+
+
+def _set_states(socn, entry_states, exit_states, S, dev):
+    """seg_entry, seg_exit (S,) int32 on ``dev`` from per-slot states laid
+    out like the table ``socn`` (0 at unlisted segments)."""
+    m = socn >= 0
+    seg_entry = np.zeros(S, np.int32)
+    seg_exit = np.zeros(S, np.int32)
+    seg_entry[socn[m]] = entry_states[m]
+    seg_exit[socn[m]] = exit_states[m]
+    return (torch.as_tensor(seg_entry, device=dev),
+            torch.as_tensor(seg_exit, device=dev))
 
 
 def viterbi_boundary_states_plain(pi, Wops, seg_of_contig):
     """viterbi_boundary_states as plain torch: a loop over the segments of
     each contig, batched over contigs; the backtrace runs on the host copy
-    of the (NS, C, M) backpointers."""
+    of the (C, NS, M) backpointers."""
     socn = np.asarray(seg_of_contig)
     C, NS = socn.shape
     S, M, _ = Wops.shape
-    dt, dev = Wops.dtype, Wops.device
-    eyemp = torch.where(torch.eye(M, dtype=torch.bool, device=dev), 0.0,
-                        _mp_neg(dt, dev))
-    pad = torch.as_tensor(socn < 0, device=dev)
-    idx = torch.as_tensor(np.maximum(socn, 0), device=dev)
-    ops_c = torch.where(pad[:, :, None, None], eyemp, Wops[idx])  # (C, NS, i, k)
-    V = _log_pi(pi, dt).expand(C, M)
-    bps = []
-    for t in range(NS):
-        sc = ops_c[:, t] + V[:, None, :]  # (C, i, k)
-        V2, bp = torch.max(sc, 2)  # ties: the first maximal entry state
-        V = V2 - torch.amax(V2, 1, keepdim=True)
-        bps.append(bp)
-    bps = torch.stack(bps).cpu().numpy()  # (NS, C, M)
+    bps, V = _mp_rows_forward(Wops, socn, _log_pi(pi, Wops.dtype).expand(C, M))
+    bps = bps.cpu().numpy()  # (C, NS, M)
     state = torch.argmax(V, 1).cpu().numpy()  # exit state of the last segment
-    exit_states = np.empty((NS, C), np.int64)
+    exit_states = np.empty((C, NS), np.int64)
     rows = np.arange(C)
     for t in range(NS - 1, -1, -1):
-        exit_states[t] = state
-        state = bps[t, rows, state]
-    entry_states = np.concatenate([state[None], exit_states[:-1]], 0)
-    m = socn >= 0
-    seg_entry = np.zeros(S, np.int32)
-    seg_exit = np.zeros(S, np.int32)
-    seg_entry[socn[m]] = entry_states.T[m]
-    seg_exit[socn[m]] = exit_states.T[m]
-    return (torch.as_tensor(seg_entry, device=dev),
-            torch.as_tensor(seg_exit, device=dev))
+        exit_states[:, t] = state
+        state = bps[rows, t, state]
+    entry_states = np.concatenate([state[:, None], exit_states[:, :-1]], 1)
+    return _set_states(socn, entry_states, exit_states, S, Wops.device)
+
+
+def _mp_identity(M, R, dev):
+    "R copies of the max-plus identity in f64: 0 on the diagonal, -inf off it."
+    eye = torch.eye(M, dtype=torch.bool, device=dev)
+    return torch.where(eye, 0.0, -torch.inf).to(torch.float64).repeat(R, 1, 1)
+
+
+def mp_chunk_products_plain(Wops, rows):
+    """K7's phase 1 as plain torch: for each row of ``rows`` (R, c) segment
+    ids (-1: padded, skipped), the max-plus product W[rows[r, c-1]] (x) ...
+    (x) W[rows[r, 0]] in f64, P'[i][j] = max_k (W_t[i][k] + P[k][j]), from
+    the max-plus identity.  Returns (R, M, M) f64."""
+    rows = torch.as_tensor(np.asarray(rows), device=Wops.device)
+    R, c = rows.shape
+    P = _mp_identity(Wops.shape[-1], R, Wops.device)
+    for t in range(c):
+        s = rows[:, t]
+        Wt = Wops[s.clamp(min=0)].to(torch.float64)  # (R, i, k)
+        nxt = torch.amax(Wt[:, :, :, None] + P[:, None, :, :], 2)
+        P = torch.where((s >= 0)[:, None, None], nxt, P)
+    return P
+
+
+def mp_chunk_scan_plain(logpi, prod, C, n_chunks):
+    """K7's phase 2 as plain torch, in f64: each contig's max-plus scan over
+    its n_chunks products (prod (C n_chunks, M, M)) from ``logpi`` (M,),
+    recording every chunk's entry vector, x <- max_k (P[i][k] + x_k), then
+    x <- x - max x.  Returns the entry vectors (C n_chunks, M) f64."""
+    M = prod.shape[-1]
+    P = prod.view(C, n_chunks, M, M)
+    x = logpi.to(device=prod.device, dtype=torch.float64).expand(C, M)
+    entry = torch.empty((C, n_chunks, M), dtype=torch.float64, device=prod.device)
+    for k in range(n_chunks):
+        entry[:, k] = x
+        y = torch.amax(P[:, k] + x[:, None, :], 2)
+        x = y - torch.amax(y, 1, keepdim=True)
+    return entry.view(-1, M)
+
+
+def mp_row_maps(bp):
+    """Each chunk row's exit -> entry map from its backpointers bp (R, c,
+    M): maps[r, i] is the state at the row's start of the path that ends in
+    state i at its end.  Returns (R, M) int64 numpy."""
+    bp = np.asarray(bp.cpu() if torch.is_tensor(bp) else bp)
+    R, c, M = bp.shape
+    maps = np.broadcast_to(np.arange(M), (R, M)).copy()
+    ridx = np.arange(R)[:, None]
+    for t in range(c - 1, -1, -1):
+        maps = bp[ridx, t, maps]
+    return maps
+
+
+def viterbi_boundary_states_chunked_plain(pi, Wops, seg_of_contig, chunk):
+    """K7's chunked scan as plain torch, the twin the kernel is held to bit
+    for bit (neither the CPU path nor the main path calls it): the contig
+    table cut into chunk rows of ``chunk`` slots (``_chunk_rows``); the
+    max-plus chunk products in f64 (``mp_chunk_products_plain``); the f64
+    scan over each contig's chunks from log pi for every row's entry vector
+    (``mp_chunk_scan_plain``), rounded to Wops's dtype; the sequential loop
+    of ``viterbi_boundary_states_plain`` over every row at once from those
+    (``_mp_rows_forward``); each row's exit -> entry map (``mp_row_maps``);
+    each contig's exit state (the first argmax of its last row's final V)
+    walked back through the later rows' maps to every row's exit state; then
+    the backtrace of every row at once.  With one chunk a contig the rows
+    start from log pi: the sequential loop.  Returns (seg_entry (S,),
+    seg_exit (S,)) int32."""
+    socn = np.asarray(seg_of_contig)
+    C = socn.shape[0]
+    S, M, _ = Wops.shape
+    dt, dev = Wops.dtype, Wops.device
+    rows, n_chunks = _chunk_rows(socn, chunk)
+    logpi = _log_pi(pi.to(dev), dt)
+    if n_chunks > 1:
+        prod = mp_chunk_products_plain(Wops, rows)
+        entry = mp_chunk_scan_plain(logpi, prod, C, n_chunks).to(dt)
+    else:
+        entry = logpi.expand(C, M)
+    bp, V = _mp_rows_forward(Wops, rows, entry)
+    bp = bp.cpu().numpy()  # (R, c, M)
+    maps = mp_row_maps(bp).reshape(C, n_chunks, M)
+    state = torch.argmax(V.view(C, n_chunks, M)[:, -1], 1).cpu().numpy()
+    cidx = np.arange(C)
+    row_exit = np.empty((C, n_chunks), np.int64)
+    for k in range(n_chunks - 1, -1, -1):
+        row_exit[:, k] = state
+        state = maps[cidx, k, state]
+    R = rows.shape[0]
+    state = row_exit.reshape(R)
+    ridx = np.arange(R)
+    exit_states = np.empty((R, chunk), np.int64)
+    entry_states = np.empty((R, chunk), np.int64)
+    for t in range(chunk - 1, -1, -1):
+        exit_states[:, t] = state
+        state = bp[ridx, t, state]
+        entry_states[:, t] = state
+    return _set_states(rows, entry_states, exit_states, S, dev)
+
+
+# the max-plus 'impossible' sentinel and anything near it is not a score
+_MP_FINITE = -1e29
+
+
+def viterbi_boundary_path_score(pi, Wops, seg_of_contig, seg_entry, seg_exit):
+    """Each contig's Viterbi path score of the boundary states (seg_entry,
+    seg_exit), in f64: log pi[entry of its first slot] + sum_t
+    W_t[exit_t][entry_t] over its listed slots (0 for a contig that lists
+    none).  Two boundary-state sequences of one contig are compared by this
+    score (the agreement rule of K7, ``viterbi_boundary_delta``).  Returns
+    (C,) f64."""
+    socn = np.asarray(seg_of_contig)
+    dev = Wops.device
+    m = torch.as_tensor(socn >= 0, device=dev)
+    idx = torch.as_tensor(np.maximum(socn, 0), device=dev)
+    e = seg_entry.to(dev).long()[idx]
+    x = seg_exit.to(dev).long()[idx]
+    W = Wops.to(torch.float64)
+    terms = torch.where(m, W[idx, x, e], 0.0)
+    logpi = _log_pi(pi.to(device=dev, dtype=torch.float64), torch.float64)
+    return terms.sum(1) + torch.where(m[:, 0], logpi[e[:, 0]], 0.0)
+
+
+def viterbi_boundary_delta(Wops, seg_of_contig):
+    """The near-tie margin of each contig's path score, δ = 2^-20 sum_t
+    max_{i,k} |W_t[i, k]| over its listed slots, the entries above -1e29
+    only (the max-plus sentinel is not a score): the f32 forward's rounding
+    budget with a factor-4 margin.  The chunked scan (K7 and its twin) may
+    pick other boundary states than the sequential loop only where the two
+    paths' scores (``viterbi_boundary_path_score``) lie within δ.  Returns
+    (C,) f64."""
+    socn = np.asarray(seg_of_contig)
+    dev = Wops.device
+    W = Wops.to(torch.float64)
+    big = torch.amax(torch.where(W > _MP_FINITE, W.abs(), 0.0), (1, 2))  # (S,)
+    idx = torch.as_tensor(np.maximum(socn, 0), device=dev)
+    m = torch.as_tensor(socn >= 0, device=dev)
+    return 2.0**-20 * torch.where(m, big[idx], 0.0).sum(1)
+
+
+def viterbi_boundary_agreement(pi, Wops, seg_of_contig, got, want):
+    """K7's agreement rule between two sets of boundary states ``got`` and
+    ``want`` ((seg_entry, seg_exit) each) of the same operators: returns
+    (differs (C,) bool, whether a contig's listed states differ; gap (C,)
+    f64, the distance of the two paths' scores; delta (C,) f64, from
+    ``viterbi_boundary_delta``).  They agree when every contig that differs
+    has gap <= delta."""
+    socn = np.asarray(seg_of_contig)
+    dev = Wops.device
+    idx = torch.as_tensor(np.maximum(socn, 0), device=dev)
+    m = torch.as_tensor(socn >= 0, device=dev)
+    got, want = ([x.to(dev) for x in pair] for pair in (got, want))
+    differs = torch.any(m & ((got[0][idx] != want[0][idx])
+                             | (got[1][idx] != want[1][idx])), 1)
+    gap = (viterbi_boundary_path_score(pi, Wops, socn, *got)
+           - viterbi_boundary_path_score(pi, Wops, socn, *want)).abs()
+    return differs, gap, viterbi_boundary_delta(Wops, socn)
 
 
 def viterbi_segment_paths(T, E, keys, valid, seg_entry, seg_exit, block=None):

@@ -844,3 +844,120 @@ def test_boundary_kernels_reject_what_they_do_not_take(dev):
                              soc, seg_has)
     with pytest.raises(ValueError, match="2 <= M <= 32"):
         wk.viterbi_boundary_states(torch.full((33,), 1 / 33, device=dev), big, soc)
+
+
+# --- K7 as a chunked max-plus scan (ViterbiBoundary) ------------------------
+#
+# K7 must equal its chunked twin viterbi_boundary_states_chunked_plain bit
+# for bit at every chunk length, two launches bit-identical.  Against the
+# sequential loop it must give the same states, except in a contig whose
+# path scores (viterbi_boundary_path_score) lie within δ
+# (viterbi_boundary_delta) of each other; on inputs whose sums are exact
+# (small integers, twin states) the states must be equal.
+
+VB_CHUNKS = ["1", "3", "8", "plan", "NS", "2NS"]
+
+
+def _vb_chunk(chunk, NS):
+    "A VB_CHUNKS entry as viterbi_boundary_cuda's chunk (None: the plan's)."
+    named = {"plan": None, "NS": NS, "2NS": 2 * NS}
+    return named[chunk] if chunk in named else int(chunk)
+
+
+def _vb_agree(pi, W, soc, got, want, exact):
+    "Equal states, or (unless ``exact``) a near-tie in each differing contig."
+    diff, gap, delta = wk.viterbi_boundary_agreement(pi, W, soc, got, want)
+    assert not bool((diff & (exact | (gap > delta))).any())
+
+
+def _check_vb(pi, W, soc, chunk, exact=False):
+    """K7 at ``chunk`` (None: the plan's) against its twin, repeated, and
+    against the sequential loop; one launch counted per call."""
+    before = wk.VITERBI_BOUNDARY.launches
+    got = wk.viterbi_boundary_cuda(pi, W, soc, chunk=chunk)
+    again = wk.viterbi_boundary_cuda(pi, W, soc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wk.VITERBI_BOUNDARY.launches == before + 2
+    k = chunk or wk.boundary_plan(np.asarray(soc).shape[1])[0]
+    twin = wk.viterbi_boundary_states_chunked_plain(pi, W, soc, k)
+    for g, a, t in zip(got, again, twin):
+        assert g.dtype == torch.int32
+        assert torch.equal(g, a) and torch.equal(g, t)
+    _vb_agree(pi, W, soc, got, wk.viterbi_boundary_states_plain(pi, W, soc), exact)
+    return got
+
+
+@pytest.mark.parametrize("chunk", VB_CHUNKS)
+@pytest.mark.parametrize("ops_kind", ["ties", "k4"])
+@pytest.mark.parametrize("case", ["uneven", "unlisted", "one_contig"])
+@pytest.mark.parametrize("M", [2, 15, 16, 17, 32])
+def test_viterbi_boundary_chunks_match_twin(dev, M, case, ops_kind, chunk):
+    pi, W = _viterbi_boundary_inputs(41, 40, M, ops_kind, dev)
+    soc = _boundary_case(case, 40, 41)[0]
+    entry, _ = _check_vb(pi, W, soc, _vb_chunk(chunk, soc.shape[1]),
+                         exact=ops_kind == "ties")
+    assert not bool((entry[torch.as_tensor(soc[:, 0], device=dev)] == 1).any())
+
+
+@pytest.mark.parametrize("C,NS,M", [(1, 4096, 32), (22, 306, 16)])
+def test_viterbi_boundary_long_contigs(dev, C, NS, M):
+    """One contig of 4096 segments at M = 32, and C3's 22 contigs of 306
+    segments at M = 16, on K4's operators: the plan's chunk length and
+    chunks of 8."""
+    pi, W = _viterbi_boundary_inputs(42, C * NS, M, "k4", dev)
+    soc = np.arange(C * NS, dtype=np.int64).reshape(C, NS)
+    for chunk in (None, 8):
+        _check_vb(pi, W, soc, chunk)
+
+
+@pytest.mark.parametrize("chunk", ["1", "3", "plan", "NS"])
+@pytest.mark.parametrize("M", [2, 15, 16, 17, 32])
+def test_viterbi_boundary_twin_states(dev, M, chunk):
+    """K4's operators of tests/_viterbi_ties.py's inputs (twin states a <
+    b tie at every step): equal to the sequential loop, and b is never a
+    boundary state (ties keep the lowest state)."""
+    a, b = M // 3, M - 1
+    T, E, keys, valid, _, _ = _tie_problem(43, 13, 200, M, 89, a, b, dev)
+    W = wk.viterbi_ops_cuda(T, E, keys, valid)
+    pi = torch.full((M,), 1.0 / M, device=dev)
+    soc = _boundary_case("uneven", 13, 43)[0]
+    got = _check_vb(pi, W, soc, _vb_chunk(chunk, soc.shape[1]), exact=True)
+    assert not any(bool((g == b).any()) for g in got)
+
+
+@pytest.mark.parametrize("M", [2, 15, 32])
+def test_viterbi_boundary_phases_match_twin(dev, M):
+    """K7's launches one at a time, at chunks of 3 over uneven contigs: the
+    f64 chunk products and the f32 entry vectors equal the twin's phases 1
+    and 2, the row maps and each contig's exit state equal those of the
+    twin's forward, and trace() gives the wrapper's states."""
+    pi, W = _viterbi_boundary_inputs(44, 40, M, "k4", dev)
+    soc = _boundary_case("uneven", 40, 44)[0]
+    k7 = wk.ViterbiBoundary(pi, W, soc, chunk=3)
+    assert k7.n_chunks == 5
+    k7.products()
+    k7.chunk_scan()
+    k7.forward()
+    torch.cuda.synchronize()
+    rows, n_chunks = wk._chunk_rows(np.asarray(soc), 3)
+    prod = wk.mp_chunk_products_plain(W, rows)
+    assert torch.equal(k7.prod, prod)
+    entry = wk.mp_chunk_scan_plain(wk._log_pi(pi, torch.float32), prod,
+                                   soc.shape[0], n_chunks).float()
+    assert torch.equal(k7.entry, entry)
+    bp, V = wk._mp_rows_forward(W, rows, entry)
+    assert torch.equal(k7.bp.long().view(bp.shape), bp)
+    assert np.array_equal(k7.maps.long().cpu().numpy(), wk.mp_row_maps(bp))
+    last = torch.argmax(V.view(soc.shape[0], n_chunks, M)[:, -1], 1)
+    assert torch.equal(k7.cexit.long(), last)
+    got = k7.trace()
+    torch.cuda.synchronize()
+    want = wk.viterbi_boundary_cuda(pi, W, soc, chunk=3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_viterbi_boundary_rejects_what_it_does_not_take(dev):
+    pi, W = _viterbi_boundary_inputs(45, 12, 16, "k4", dev)
+    soc = _boundary_case("uneven", 12, 45)[0]
+    with pytest.raises(ValueError, match="chunk must be at least 1"):
+        wk.viterbi_boundary_cuda(pi, W, soc, chunk=0)
