@@ -26,6 +26,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    the fitted manager's own inputs (its packed windows, f32 T and E, the
    segment operators and boundary vectors they give: the shape, M and key
    count the fit launched the kernels at), with kernel and plain times;
+   then the span E-step (``hmm.estep``: the chunk products, K6 over them
+   once, the SpanLoglik backward) on the same manager's packed rows, held
+   against its window E-step (``span_estep``);
 5. the posterior path: ``smcpp_tpu_torch.commands.main posterior --device
    cuda --map --intervals 0.025,0.5,0.975`` with phase 4's model on the
    first 100 Mbp contig (M=32, every base a window); checks the npz (gammas,
@@ -36,12 +39,29 @@ Phases, in order; any failure ends the script with a non-zero exit:
    operators, K5 on the whole contig (every window, from the boundary
    states K7 gives, with its two launches timed apart: ``k5_phases``), and
    the six window kernels on the posterior manager's own inputs,
-   restricted to its first 32 segments;
+   restricted to its first 32 segments; then both row-level routes on the
+   same contig (``row_routes``): ``hmm.decode_gammas`` (K6 once) against
+   the window decode's rows, the row Viterbi (f64 row powers, K7 once)
+   against the window Viterbi's path, K7 on the row operators against its
+   chunked twin, and their phases (``row_phases``);
 6. ``estep_direct`` alone at the bench.py C3 shape (22 x 2.5e6 windows,
    M=16, 128 keys, drawn by the port's copy of bench.py's ``synth_contig``;
    median of 3 runs), in Gbp/s, with K6 against its plain version on its
    operators and K3 and K1 against their plain versions on the whole C3
-   input at both rungs, then the SM clock under load.
+   input at both rungs, then the SM clock under load;
+7. one simulated contig of human chromosome 1's length (248,956,422 bp,
+   n=20, its own seed) through ``posterior --device cuda --map
+   --intervals`` with phase 4's model: over the 70% decode gate, so the
+   decode runs row-level by the gate alone (``chr1_posterior``); checks
+   the npz and the launches (K3, K6, K1, K2, then K6 in the row decode,
+   then K4, K7, K5), prints the wall time, the peak device memory and the
+   row decode's phases.
+
+K2's plain version sums each window's per-key masses in f64
+(``dsc_sweep_plain(..., sum_dtype=float64)``, ``k2_plain``): the f32
+``index_add_`` of the default plain loop sums in an atomic order that
+varies on the card, and its sums with it, where K2's gsum (64-bit fixed
+point) is bit-identical from launch to launch.
 
 K3's plain version is the window loop with each step's products summed in
 f64 (``segment_ops_plain(..., sum_dtype=float64)``, the kernel's own
@@ -435,6 +455,18 @@ def k1_estep_agreement(tag, T, E, keys, valid, Q_end, alphas, alphas_32):
         f"f32-summed loop's by {dx:.3e} and {dg:.3e} (of their largest entries)")
 
 
+def k2_plain(T, E, keys, valid, alphas, Q_end):
+    """K2's plain version: the descending sweep with each window's per-key
+    sums in f64 (an f32 index_add_'s atomic order varies on the card, and
+    its sums with it; K2's gsum is 64-bit fixed point)."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    return wk.dsc_sweep_plain(T, E, keys, valid, alphas, Q_end,
+                              sum_dtype=torch.float64)
+
+
 def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
     """Each kernel against its plain version on one input set at one rung;
     raises on a miss.  Returns {kernel name: (max abs err, kernel ms, plain
@@ -452,7 +484,7 @@ def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
     t1p = cuda_ms(lambda: k1_plain(T, E, keys, valid, A_in, prec), 1)
     # K2 on the same (plain) stream, so only K2 differs
     u, xo, gs = wk.dsc_sweep_cuda(T, E, keys, valid, al_p, Q_end)
-    u_p, xo_p, gs_p = wk.dsc_sweep_plain(T, E, keys, valid, al_p, Q_end)
+    u_p, xo_p, gs_p = k2_plain(T, E, keys, valid, al_p, Q_end)
     check_close(f"dsc_sweep [{tag}] u_start", u, u_p, HIGHEST_RTOL, 1e-7)
     check_close(f"dsc_sweep [{tag}] xo", xo, xo_p, HIGHEST_RTOL,
                 1e-8 * float(xo_p.abs().max()))
@@ -462,7 +494,7 @@ def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
     if abs(float(gs.sum()) - nv) > 1e-6 * nv:
         raise AssertionError(f"dsc_sweep [{tag}]: sum(gsum) != valid windows")
     t2 = cuda_ms(lambda: wk.dsc_sweep_cuda(T, E, keys, valid, al_p, Q_end), reps)
-    t2p = cuda_ms(lambda: wk.dsc_sweep_plain(T, E, keys, valid, al_p, Q_end), 1)
+    t2p = cuda_ms(lambda: k2_plain(T, E, keys, valid, al_p, Q_end), 1)
     elt = al_p.element_size()
     rec = {
         "segment_ops": (e3, t3, t3p, *bound("segment_ops", E, keys, valid)),
@@ -991,6 +1023,19 @@ def compare_main_path(im):
     return records
 
 
+def simulate(workdir, name, L_bp, seed, n=20):
+    """One contig of L_bp bases, n = 20 haplotypes, from the slice's truth
+    (the port's data/simulate.py, theta = rho = 2.5e-4); returns its path."""
+    from smcpp_tpu_torch.data.simulate import write_simulated
+    from smcpp_tpu_torch.models.model import SMCModel
+
+    truth = SMCModel([0.01, 0.1, 1.0, 5.0], 1e4, "piecewise")
+    truth.y[:] = np.log([1.0, 0.3, 1.0, 2.0])
+    fn = os.path.join(workdir, f"{name}.smc.gz")
+    write_simulated(fn, truth, 2.5e-4, 2.5e-4, L=L_bp, n=n, seed=seed, pid="pop1")
+    return fn
+
+
 def main_path(workdir):
     """Simulate the slice's data and run estimate through the CLI entry
     point; returns (launches, kernel records from compare_main_path, the
@@ -998,22 +1043,13 @@ def main_path(workdir):
     import torch
 
     from smcpp_tpu_torch.commands import main as cli
-    from smcpp_tpu_torch.data.simulate import write_simulated
     from smcpp_tpu_torch.inference import analysis as an
     from smcpp_tpu_torch.inference import manager as mg
-    from smcpp_tpu_torch.models.model import SMCModel
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     L_bp, n, mu = 100_000_000, 20, 1.25e-8
-    truth = SMCModel([0.01, 0.1, 1.0, 5.0], 1e4, "piecewise")
-    truth.y[:] = np.log([1.0, 0.3, 1.0, 2.0])
     t0 = time.perf_counter()
-    files = []
-    for i in range(2):
-        fn = os.path.join(workdir, f"contig{i}.smc.gz")
-        write_simulated(fn, truth, 2.5e-4, 2.5e-4, L=L_bp, n=n, seed=SEED + i,
-                        pid="pop1")
-        files.append(fn)
+    files = [simulate(workdir, f"contig{i}", L_bp, SEED + i) for i in range(2)]
     log(f"simulated 2 contigs x {L_bp / 1e6:.0f} Mbp, n={n}: "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1087,8 +1123,9 @@ def main_path(workdir):
     pi, T, E = (x.float().contiguous() for x in (pi, T, E))
     estep_breakdown("slice", pi, T, E, im._wkeys, im._wvalid, im._soc)
     ll_agreement("slice", pi, T, E, im._wkeys, im._wvalid, im._soc, im.precision)
-    return (launches, compare_main_path(im),
-            os.path.join(out, "model.final.json"), files)
+    records = compare_main_path(im)
+    span_estep(im)
+    return launches, records, os.path.join(out, "model.final.json"), files
 
 
 def phase_times(label, shape, phases):
@@ -1306,7 +1343,9 @@ def posterior_path(workdir, model_json, data):
     check_posterior_npz(out, data, im)
     pi, T, E = (x.float().contiguous() for x in im.tensors())
     posterior_breakdown(im, pi, T, E)
-    return launches, compare_posterior(im, pi, T, E)
+    records = compare_posterior(im, pi, T, E)
+    row_routes(im, np.load(out)[data + "_map"])
+    return launches, records
 
 
 def check_posterior_npz(out, data, im):
@@ -1341,6 +1380,285 @@ def check_posterior_npz(out, data, im):
         f"{int(spans.max())}); MAP states in [{path.min()}, {path.max()}], "
         f"{np.bincount(path, minlength=M).astype(bool).sum()} distinct; "
         f"median quantiles {np.round(np.median(qs, 1), 4).tolist()}")
+
+
+def launched(fn):
+    """(fn(), {kernel name: launches}) of the kernels fn launched, with every
+    count set to 0 just before it."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    for k in wk.KERNELS:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in wk.KERNELS if k.launches}
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def span_estep(im):
+    """Phase 4's span E-step: ``hmm.estep`` (the chunk products, K6 over
+    them, the SpanLoglik backward) on the fitted slice manager's own packed
+    rows, held against the same manager's window E-step (estep_direct at
+    'highest', f32 carries) at the bounds tests/test_torch_estimate.py holds
+    the port to JAX with: ll rtol 1e-6, each statistic rtol 1e-4 / atol 1e-6
+    of its largest entry.  Where the two log-likelihoods are further apart
+    (the window's f32 sweeps drift over many windows), the span's must lie
+    within rtol 1e-6 of the f64 evaluation (the window loop in f64,
+    ``ll_agreement``'s exact value) and nearer it than the window's; the
+    f64 evaluations of the two routes must agree at rtol 1e-12.  Prints the f64
+    evaluations of both routes (the span's chunk scan and the window loop),
+    the window E-step at the fit's rung, the launches (K6 once, nothing
+    else), the chunk and batch counts and the CUDA-event times of the
+    chunk products, K6 and the whole E-step."""
+    import torch
+
+    from smcpp_tpu_torch.ops import hmm
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    pi64, T64, E64 = im.tensors()
+    pi, T, E = (x.float().contiguous() for x in (pi64, T64, E64))
+    spans, keys = im._rows()
+    nbits, chunk, budget = im._nbits, im._chunk, im._row_budget()
+    (C, L), M = spans.shape, T.shape[0]
+    span, got = launched(lambda: hmm.estep(pi, T, E, spans, keys, nbits, chunk, budget))
+    if got != {"boundary_scan": 1}:
+        raise AssertionError(f"span E-step launches: {got} (want K6 once)")
+    args = (pi, T, E, im._wkeys, im._wvalid, im._soc)
+    win = wk.estep_direct(*args, precision="highest")
+    win_fit = wk.estep_direct(*args, precision=im.precision)
+    with torch.no_grad():
+        Ms, logs = hmm._all_chunk_products(T64, E64, spans, keys, nbits, chunk, budget)
+        ll_s64 = float(hmm._scan_chunks(pi64, Ms, logs, torch.any(spans > 0, 1)).sum())
+        del Ms, logs
+        ops, lg = wk.segment_ops_plain(T64, E64, im._wkeys, im._wvalid, "highest")
+        ll_x = float(wk.contig_boundaries_plain(pi64, ops, lg, im._soc,
+                                                torch.any(im._wvalid, 1))[0])
+        del ops, lg
+    ll_s, ll_w, ll_wf = float(span[0]), float(win[0]), float(win_fit[0])
+    d = _rel(ll_s, ll_w)
+    log(f"span E-step [slice]: ll span {ll_s!r}, window ('highest') {ll_w!r}, "
+        f"window ({im.precision!r}, the fit's rung) {ll_wf!r}; f64: span chunk scan "
+        f"{ll_s64!r}, window loop {ll_x!r} (apart {_rel(ll_s64, ll_x):.3e}); span "
+        f"against window {d:.3e}; relative distance from the f64 window loop: "
+        f"span {_rel(ll_s, ll_x):.3e}, window 'highest' {_rel(ll_w, ll_x):.3e}, "
+        f"window {im.precision!r} {_rel(ll_wf, ll_x):.3e}")
+    if not np.isfinite(ll_s) or _rel(ll_s64, ll_x) > 1e-12:
+        raise AssertionError("span E-step: the log-likelihood is not finite, or the "
+                             "two routes' f64 evaluations disagree")
+    if d > 1e-6:
+        if _rel(ll_s, ll_x) > 1e-6 or _rel(ll_s, ll_x) >= _rel(ll_w, ll_x):
+            raise AssertionError(
+                f"span E-step: ll {d:.3e} from the window E-step's, and not within "
+                "rtol 1e-6 of the f64 evaluation and nearer it than the window's")
+        log("span E-step: ll past rtol 1e-6 of the window E-step's, within rtol "
+            "1e-6 of the f64 evaluation and nearer it than the window's")
+    errs = []
+    for name, a, b in zip(("gamma0", "xisum", "gamma_sums"), span[1:], win[1:]):
+        a, b = a.double(), b.double()
+        atol = 1e-6 * float(b.abs().max())
+        bad = (a - b).abs() > atol + 1e-4 * b.abs()
+        errs.append(f"{name} {float(((a - b).abs() / (b.abs() + atol)).max()):.3e}")
+        if bool(bad.any()) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(
+                f"span E-step {name}: {int(bad.sum())} entries over rtol 1e-4 / "
+                f"atol {atol:.3g} of the window E-step's")
+    n_chunks = C * L // chunk
+    log(f"span E-step [slice]: statistics within rtol 1e-4 / atol 1e-6 of max of "
+        f"the window E-step's (largest |d| / (|want| + atol): {', '.join(errs)}); "
+        f"{int((im._spans > 0).sum())} rows, C x L = {(C, L)}, nbits {nbits}, "
+        f"{n_chunks} chunks of {chunk}, batches of {hmm._batch_size(chunk, M, budget)} "
+        f"chunks (products) and {hmm._tape_batch_size(chunk, M, nbits, budget)} "
+        f"(the backward), budget {budget / 1e9:.1f} GB; launches {got}")
+
+    def phases():
+        with torch.no_grad():
+            Ms, logs = hmm._all_chunk_products(T, E, spans, keys, nbits, chunk, budget)
+        yield "chunk products"
+        table, seg_has = hmm._chunk_layout(spans, chunk)
+        wk.contig_boundaries(pi, Ms.view(-1, M, M), logs.view(-1), table, seg_has)
+        yield "contig_boundaries (K6)"
+        hmm.estep(pi, T, E, spans, keys, nbits, chunk, budget)
+        yield "estep (forward and backward)"
+
+    t = phase_times("span E-step [slice]", f"C x L = {(C, L)}, M = {M}, "
+                    f"{n_chunks} chunks", phases)
+    log(f"span E-step [slice]: the backward (estep less its forward) "
+        f"{t['estep (forward and backward)'] - t['chunk products'] - t['contig_boundaries (K6)']:.2f} ms; "
+        f"window E-step for comparison: see 'E-step [slice]' above")
+
+
+def row_phases(label, im, viterbi=True):
+    """CUDA-event milliseconds of the row-level decode's phases on the
+    manager's packed rows (the row operators with the chunk products, K6,
+    ``_chunk_gammas``, the pull) and, with ``viterbi``, the row Viterbi's
+    (the f64 row powers, K7, the padding fill); K6's time beside its bound
+    on the chunk table."""
+    import torch
+
+    from smcpp_tpu_torch.ops import hmm
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    pi64, T64, E64 = im.tensors()
+    pi, T, E = (x.float().contiguous() for x in (pi64, T64, E64))
+    spans, keys = im._rows()
+    nbits, chunk, budget = im._nbits, im._chunk, im._row_budget()
+    (C, L), M = spans.shape, T.shape[0]
+    table, seg_has = hmm._chunk_layout(spans, chunk)
+
+    def decode():
+        with torch.no_grad():
+            Ms, logs = hmm._all_chunk_products(T, E, spans, keys, nbits, chunk, budget)
+        yield "row operators + chunk products"
+        _, A_in, Q_end, _ = wk.contig_boundaries(pi, Ms.view(-1, M, M), logs.view(-1),
+                                                 table, seg_has)
+        del Ms
+        yield "contig_boundaries (K6)"
+        g = hmm.rows_gammas(T, E, spans, keys, A_in, Q_end, nbits, chunk, budget)
+        yield "_chunk_gammas"
+        g.cpu()
+        yield "pull"
+
+    def row_viterbi():
+        W = hmm.row_powers(T64, E64, spans, keys, nbits, budget)
+        yield "row powers (f64)"
+        Wops = W.transpose(1, 2).float().contiguous()
+        del W
+        rows = np.where(im._spans > 0, np.arange(C * L).reshape(C, L), -1)
+        entry, exit_ = wk.viterbi_boundary_states(pi64, Wops, rows)
+        yield "viterbi_boundary (K7)"
+        hmm._fill_padding(exit_.view(C, L).long(), entry.view(C, L).long(),
+                          spans > 0, pi64).cpu()
+        yield "fill + pull"
+
+    shape = (f"C x L = {(C, L)}, {int((im._spans > 0).sum())} rows, M = {M}, nbits "
+             f"{nbits}, {table.size} chunks of {chunk}")
+    t = phase_times(f"row decode [{label}]", shape, decode)
+    b6 = scan_bound("boundary_scan", M, table.size, table)
+    c, n = wk.boundary_plan(table.shape[1])
+    log(f"row decode [{label}]: K6 {t['contig_boundaries (K6)']:.3f} ms / bound "
+        f"{b6[0]:.4f} ({b6[1]}), plan c = {c}, n_chunks = {n}")
+    if viterbi:
+        t.update(phase_times(f"row Viterbi [{label}]", shape, row_viterbi))
+        b7 = scan_bound("viterbi_boundary", M, C * L, np.where(im._spans > 0, 0, -1))
+        c, n = wk.boundary_plan(L)
+        log(f"row Viterbi [{label}]: K7 {t['viterbi_boundary (K7)']:.3f} ms / bound "
+            f"{b7[0]:.4f} ({b7[1]}), plan c = {c}, n_chunks = {n}")
+    return t
+
+
+def row_routes(im, win_map):
+    """Phase 5's row-level routes on the posterior contig (the manager the
+    window posterior built): ``hmm.decode_gammas`` (K6 once, nothing else)
+    against the window decode's rows, each row divided by its span, at rtol
+    2e-3 / atol 1e-3 (tests/test_decode.py:372-404); the row-level Viterbi
+    (``hmm.viterbi_paths``, f64 row powers and K7 once) against the window
+    Viterbi's path ``win_map`` on at least 99% of rows (f32 against f64,
+    tests/test_decode.py:456-487); K7 on the row operators bit for bit its
+    chunked twin; then ``row_phases``."""
+    from smcpp_tpu_torch.ops import hmm
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    pi64, T64, E64 = im.tensors()
+    pi, T, E = (x.float().contiguous() for x in (pi64, T64, E64))
+    spans, keys = im._rows()
+    nbits, chunk, budget = im._nbits, im._chunk, im._row_budget()
+    C, L = spans.shape
+    span = im._wrow_spans[0].astype(np.float64)[:, None]
+    t0 = time.perf_counter()
+    g, got = launched(lambda: im._per_input_row(hmm.decode_gammas(
+        pi, T, E, spans, keys, nbits, chunk, budget).cpu().numpy())[0])
+    t_dec = time.perf_counter() - t0
+    if got != {"boundary_scan": 1}:
+        raise AssertionError(f"row decode launches: {got} (want K6 once)")
+    a, b = g / span, im.gammas[0] / span
+    bad = np.abs(a - b) > 1e-3 + 2e-3 * np.abs(b)
+    if bad.any() or not np.all(np.isfinite(g)):
+        raise AssertionError(f"row decode: {int(bad.sum())} of {bad.size} per-base "
+                             "gammas over rtol 2e-3 / atol 1e-3 of the window decode's")
+    t0 = time.perf_counter()
+    p, got = launched(lambda: hmm.viterbi_paths(
+        pi64, T64, E64, spans, keys, nbits, budget)[0].cpu().numpy())
+    t_vit = time.perf_counter() - t0
+    if got != {"viterbi_boundary": 1}:
+        raise AssertionError(f"row Viterbi launches: {got} (want K7 once)")
+    p = p[np.cumsum(im._row_reps[0]) - 1]
+    n_diff = int((p != win_map).sum())
+    if n_diff > 0.01 * len(p):
+        raise AssertionError(f"row Viterbi: {n_diff} of {len(p)} rows differ from "
+                             "the window Viterbi's (more than 1%)")
+    W = hmm.row_powers(T64, E64, spans, keys, nbits, budget).transpose(1, 2)
+    W = W.float().contiguous()
+    rows = np.where(im._spans > 0, np.arange(C * L).reshape(C, L), -1)
+    k7 = wk.viterbi_boundary_cuda(pi64, W, rows)
+    twin = wk.viterbi_boundary_states_chunked_plain(pi64, W, rows, wk.boundary_plan(L)[0])
+    for name, x, y in zip(("entry", "exit"), k7, twin):
+        check_equal(f"viterbi_boundary [row operators] {name} states", x, y)
+    del W
+    log(f"row routes [posterior contig]: the row decode {t_dec:.2f} s wall "
+        f"(largest per-base gamma difference from the window decode's "
+        f"{float(np.abs(a - b).max()):.3e}); the row Viterbi {t_vit:.2f} s wall, "
+        f"{n_diff} of {len(p)} rows differ from the window Viterbi's; K7 on the "
+        f"{int((im._spans > 0).sum())} row operators equals its chunked twin bit "
+        "for bit")
+    row_phases("posterior contig", im)
+
+
+# human chromosome 1 (GRCh38), the longest unbinned contig a user decodes
+CHR1_BP = 248_956_422
+
+
+def chr1_posterior(workdir, model_json):
+    """Phase 7: one simulated contig of CHR1_BP bases (n = 20, its own seed)
+    through ``posterior --device cuda --map --intervals`` with phase 4's
+    model.  Its window streams are over the 70% decode gate, so the decode
+    must go row-level by the gate alone (no environment override); the
+    E-step and the Viterbi stay on windows.  Checks the npz
+    (``check_posterior_npz``) and the launches (K3, K6, K1, K2 in the
+    E-step, K6 in the row decode, K4, K7, K5 in the Viterbi), prints the
+    wall time, the peak device memory and the row decode's phases."""
+    import torch
+
+    from smcpp_tpu_torch.commands import main as cli
+
+    if "SMCPP_TPU_ESTREAM_BYTES" in os.environ:
+        raise AssertionError("phase 7 must reach the row-level decode by the gate "
+                             "alone: unset SMCPP_TPU_ESTREAM_BYTES")
+    t0 = time.perf_counter()
+    data = simulate(workdir, "chr1", CHR1_BP, SEED + 7)
+    log(f"simulated 1 contig x {CHR1_BP} bp, n=20: {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(workdir, "chr1.npz")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    im, launches = launched(lambda: cli.main([
+        "posterior", "--device", "cuda", "--map", "--intervals", "0.025,0.5,0.975",
+        model_json, out, data,
+    ]))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    S, L = im._wkeys.shape
+    M = len(im.hidden_states) - 1
+    need, gate = im._window_stream_bytes(12), im._hbm_budget(0.70)
+    log(f"posterior [chr1]: {wall:.2f} s wall, peak device memory {peak / 1e9:.2f} GB; "
+        f"S x L = {(S, L)} ({S * L} windows), M = {M}, {im.em_idx.n_keys} keys, "
+        f"{int((im._spans > 0).sum())} rows; the window decode needs "
+        f"{need / 1e9:.1f} GB against 70% of the card, {gate / 1e9:.1f} GB; "
+        f"kernel launches {launches}")
+    if not im._use_windows or im._window_decode_fits():
+        raise AssertionError("posterior [chr1]: the decode gate did not send the "
+                             "decode to the row level")
+    want = {"segment_ops": 1, "boundary_scan": 2, "asc_sweep": 1, "dsc_sweep": 1,
+            "viterbi_ops": 1, "viterbi_boundary": 1, "viterbi_paths": 1}
+    if launches != want:
+        raise AssertionError(f"posterior [chr1] launches {launches}, want {want} "
+                             "(K6's second launch is the row decode's)")
+    check_posterior_npz(out, data, im)
+    row_phases("chr1", im, viterbi=False)
 
 
 def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
@@ -1443,7 +1761,8 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         launches, records, model_json, files = main_path(workdir)
         post_launches, post_records = posterior_path(workdir, model_json, files[0])
-    c3_throughput()
+        c3_throughput()
+        chr1_posterior(workdir, model_json)
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     # K1-K3 and K6 from the estimate path, K2g, K4, K5 and K7 from the

@@ -10,7 +10,9 @@ SMC++ src/inference_manager.cpp):
   for dQ/dy and a leading batch dimension for ``Q_batch``, on the same
   device.  The E-statistics are constants in Q (src/hmm.cpp:155-193);
 * the posterior decode (``save_gamma`` / ``gammas``) and the MAP paths
-  (``map_paths``) through the window kernels, single device.
+  (``map_paths``) through the window kernels, single device;
+* the span kernel (ops/hmm.py) where the cost model picks it, and the
+  row-level decode and Viterbi past the window gates and at M = 1.
 
 Everything runs on the ``device`` the manager was built with.  Asking for
 CUDA where there is none raises; nothing falls back to the CPU.
@@ -26,6 +28,7 @@ import torch
 from ..ops import csfs as csfs_mod
 from ..ops import emission as em_mod
 from ..ops import grid as grid_mod
+from ..ops import hmm
 from ..ops import ratefunc, transition
 from ..ops import window_kernel as wk
 
@@ -147,7 +150,8 @@ class OnePopInferenceManager:
         spans, keys, self._row_reps = pack_observations(
             data_list, self.em_idx.key_id(), chunk
         )
-        self._spans = spans
+        self._spans, self._keys, self._chunk = spans, keys, chunk
+        self._rows_d = None
         max_span = int(spans.max(initial=0))
         self._total_bases = float(sum(d[:, 0].sum() for d in data_list))
         self._key_counts = np.bincount(
@@ -175,9 +179,9 @@ class OnePopInferenceManager:
     # -- kernel choice and the window-stream memory policy ---------------
     def _init_kernel_choice(self, data_list, spans):
         """Pick the E-step kernel by the reference's cost model
-        (manager.py:_init_kernel_choice) and stage its inputs.  The span
-        kernel (ops/hmm.py) is not ported yet: when the model picks it, this
-        raises instead of running anything else."""
+        (manager.py:_init_kernel_choice) and stage its inputs: the packed
+        windows for the window kernel, the packed rows for the span kernel
+        (ops/hmm.py)."""
         if len(self.hidden_states) == 2:
             # single hidden interval: the closed-form E-step (_estep_m1)
             self._use_windows = False
@@ -194,12 +198,8 @@ class OnePopInferenceManager:
             self._device,
         )
         if not self._use_windows:
-            raise NotImplementedError(
-                "the kernel cost model picked the span kernel (ops/hmm.py) for "
-                f"this data ({n_rows} compressed rows, "
-                f"{self._total_bases:.0f} windows); the span kernel is not "
-                "ported yet (ROADMAP A6)"
-            )
+            self._rows()
+            return
         wkeys, wvalid, soc = wk.pack_windows(data_list, self.em_idx.key_id())
         wk.check_key_range(wkeys, self.em_idx.n_keys)
         self._wkeys = torch.as_tensor(wkeys, device=self._device)
@@ -207,6 +207,20 @@ class OnePopInferenceManager:
         self._soc = soc
         # row spans per contig, for the window decode's row ends
         self._wrow_spans = [d[:, 0].astype(np.int64) for d in data_list]
+
+    def _rows(self):
+        "The packed rows (spans, keys) as (C, L) int32 tensors on the device."
+        if self._rows_d is None:
+            self._rows_d = tuple(torch.as_tensor(x, device=self._device)
+                                 for x in (self._spans, self._keys))
+        return self._rows_d
+
+    def _row_budget(self):
+        """Byte budget of one batch of the row-level kernels (ops/hmm.py):
+        the device budget on a GPU, the reference's 256 MB elsewhere."""
+        if self._device.type == "cuda":
+            return self._hbm_budget()
+        return hmm.BATCH_BYTES
 
     def _hbm_budget(self, frac=0.375):
         """Per-device byte budget for window-state streams: ``frac`` of the
@@ -418,10 +432,16 @@ class OnePopInferenceManager:
             return ll
         pi, T, E = self.tensors()
         pi_d, T_d, E_d = (x.float().contiguous() for x in (pi, T, E))
-        ll, gamma0, xisum, gamma_sums = wk.estep_direct(
-            pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
-            precision=self.precision,
-        )
+        if self._use_windows:
+            ll, gamma0, xisum, gamma_sums = wk.estep_direct(
+                pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
+                precision=self.precision,
+            )
+        else:
+            ll, gamma0, xisum, gamma_sums = hmm.estep(
+                pi_d, T_d, E_d, *self._rows(), self._nbits, self._chunk,
+                self._row_budget(),
+            )
         self._ll = float(ll)
         self._stats = tuple(
             x.detach().to(torch.float64).cpu().numpy()
@@ -457,23 +477,18 @@ class OnePopInferenceManager:
         """Row gammas at a single hidden interval: each row's posterior mass
         is its span, exactly (manager.py:1292-1306); sub-rows made by span
         splitting are summed back to the caller's rows."""
+        return [s[:, None] for s in self._per_input_row(self._spans.astype(np.float64))]
+
+    def _per_input_row(self, rows):
+        """Cut (C, L, ...) packed sub-row results into one array per contig
+        of the caller's rows, summing the sub-rows span splitting made."""
         out = []
         for i, reps in enumerate(self._row_reps):
-            nsub = int(reps.sum())
-            s = self._spans[i, :nsub].astype(np.float64)
+            r = rows[i, : int(reps.sum())]
             if reps.max(initial=1) > 1:
-                offs = np.concatenate([[0], np.cumsum(reps)[:-1]])
-                s = np.add.reduceat(s, offs)
-            out.append(s[:, None])
+                r = np.add.reduceat(r, np.concatenate([[0], np.cumsum(reps)[:-1]]), axis=0)
+            out.append(r)
         return out
-
-    def _row_level_unported(self, what, gate):
-        S, L = self._wkeys.shape
-        return NotImplementedError(
-            f"{what}: the window streams of {S * L} windows x "
-            f"{len(self.hidden_states) - 1} states are over the {gate}, and "
-            "the row-level decode (ops/hmm.py) is not ported yet (ROADMAP A6)"
-        )
 
     def _row_ends(self):
         "Flat segment-major index of every row's last window, on the device."
@@ -494,23 +509,20 @@ class OnePopInferenceManager:
 
     def _compute_gammas(self, pi_d, T_d, E_d):
         """Posterior masses per original input row, one (L_i, M) f32 array
-        per contig, through the window decode (decode_gammas_windows) when
-        its streams fit the card.  The reference falls back to the
-        row-level decode otherwise (manager.py:354-396); that is not ported
-        and raises.  The pull is f32 (the reference's f16 pull is not
-        ported)."""
-        if not self._window_decode_fits():
-            budget = self._hbm_budget(0.70)
-            raise self._row_level_unported(
-                "posterior decode",
-                f"window decode gate ({self._window_stream_bytes(12) / 1e9:.1f}"
-                f" GB needed, 70% of the device = {budget / 1e9:.1f} GB)",
+        per contig: through the window decode (decode_gammas_windows) when
+        the E-step runs on windows and its streams fit the card, else the
+        row-level decode (hmm.decode_gammas, manager.py:334-410), its
+        sub-rows summed back to the caller's rows.  The pull is f32 (the
+        reference's f16 pull is not ported)."""
+        if self._use_windows and self._window_decode_fits():
+            _, g = wk.decode_gammas_windows(
+                pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
+                self._row_ends(), precision=self._decode_precision(),
             )
-        _, g = wk.decode_gammas_windows(
-            pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
-            self._row_ends(), precision=self._decode_precision(),
-        )
-        return self._split_rows(g.cpu().numpy())
+            return self._split_rows(g.cpu().numpy())
+        g = hmm.decode_gammas(pi_d, T_d, E_d, *self._rows(), self._nbits,
+                              self._chunk, self._row_budget())
+        return self._per_input_row(g.to(torch.float32).cpu().numpy())
 
     def _window_map_paths(self, pi, T, E, block=None):
         """MAP paths through the window max-plus kernels (viterbi_windows);
@@ -523,16 +535,19 @@ class OnePopInferenceManager:
 
     def map_paths(self):
         """Row-resolution MAP (Viterbi) hidden-state paths, one (L_i,) int32
-        array per contig: the state at each row's last window, through the
-        window max-plus kernels (manager.py:698-771).  Over the backpointer
-        budget the reference streams the backpointers per block (plain
-        version only here; on CUDA it raises, ROADMAP B6); past that, and at
-        M = 1, it takes the row-level Viterbi, which is not ported and
-        raises (ROADMAP A6)."""
+        array per contig (manager.py:698-771): when the E-step runs on
+        windows, the state at each row's last window through the window
+        max-plus kernels, or, over the backpointer budget, with the
+        backpointers streamed per block (plain version only here; on CUDA it
+        raises, ROADMAP B6).  Otherwise (the span kernel, past both window
+        gates, M = 1) the row-level Viterbi (hmm.viterbi_paths) in f64 over
+        the packed rows; a split row reports the state at its last
+        sub-row's end."""
+        pi, T, E = self.tensors()
         if self._use_windows:
-            pi, T, E = (x.float().contiguous() for x in self.tensors())
+            pi32, T32, E32 = (x.float().contiguous() for x in (pi, T, E))
             if self._window_viterbi_fits():
-                return self._window_map_paths(pi, T, E)
+                return self._window_map_paths(pi32, T32, E32)
             L = self._wkeys.shape[1]
             block = wk.remat_block_size(L)
             eff = (block * 1.0 + 4.0 * (L // block)) / L  # int8 blk + f32 snaps
@@ -541,16 +556,10 @@ class OnePopInferenceManager:
                     "window Viterbi backpointer stream over budget; "
                     "streaming per block (%d)", block,
                 )
-                return self._window_map_paths(pi, T, E, block=block)
-            raise self._row_level_unported(
-                "MAP decode",
-                f"Viterbi gate ({self._hbm_budget() / 1e9:.1f} GB, 37.5% of "
-                "the device)",
-            )
-        raise NotImplementedError(
-            "MAP decode at a single hidden interval takes the row-level "
-            "Viterbi (ops/hmm.py), which is not ported yet (ROADMAP A6)"
-        )
+                return self._window_map_paths(pi32, T32, E32, block=block)
+        paths = hmm.viterbi_paths(pi, T, E, *self._rows(), self._nbits,
+                                  self._row_budget()).cpu().numpy()
+        return [paths[i, np.cumsum(reps) - 1] for i, reps in enumerate(self._row_reps)]
 
     def _check_finite(self, ll, stats, pi, T, E):
         """Detect NaN/Inf in the E-step outputs and dump diagnostics: the

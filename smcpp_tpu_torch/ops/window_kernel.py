@@ -893,13 +893,21 @@ def asc_sweep_plain(T, E, keys, valid, A_in, precision, sum_dtype=None):
     return alphas, a
 
 
-def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, emit_gamma=False):
+def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, emit_gamma=False,
+                    sum_dtype=None):
     """The descending beta sweep of stats_pass, accumulating like the XLA
     reference: each window's per-key masses and outer products are summed
     over segments in the compute dtype, then added to f64 accumulators.
     Returns (u_start (S, M), xo (M, M) f64, gsum (n_keys, M) f64), and with
     ``emit_gamma`` also each window's posterior (S, L, M) in the compute
-    dtype (zero at invalid windows)."""
+    dtype (zero at invalid windows).
+
+    ``sum_dtype`` is the dtype of each window's per-key sums g_k: None sums
+    in the compute dtype, as the reference does (the CPU path);
+    torch.float64 forms them in f64, the plain version K2's gsum (64-bit
+    fixed point) is held to on the card, where the order of
+    ``index_add_``'s atomics varies from run to run and an f32 sum moves
+    with it."""
     S, L = keys.shape
     M = T.shape[0]
     n_keys = E.shape[0]
@@ -922,8 +930,8 @@ def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, emit_gamma=False):
         if emit_gamma:
             gam[:, l] = gamma
         ascale = (a / Z) * (v & vn)
-        g_k = torch.zeros((n_keys, M), dtype=dt, device=T.device)
-        g_k.index_add_(0, k.long(), gamma)
+        g_k = torch.zeros((n_keys, M), dtype=sum_dtype or dt, device=T.device)
+        g_k.index_add_(0, k.long(), gamma.to(g_k.dtype))
         gsum += g_k.to(torch.float64)
         xo += (ascale.T @ u).to(torch.float64)
         qn = qun / torch.clamp(torch.amax(qun, 1, keepdim=True), min=tiny)

@@ -961,3 +961,213 @@ def test_viterbi_boundary_rejects_what_it_does_not_take(dev):
     soc = _boundary_case("uneven", 12, 45)[0]
     with pytest.raises(ValueError, match="chunk must be at least 1"):
         wk.viterbi_boundary_cuda(pi, W, soc, chunk=0)
+
+
+# --- K2's gsum check, repeated ---------------------------------------------
+
+def test_dsc_sweep_gsum_check_holds_every_run(dev):
+    """chip_smoke.py's K2 check on slice-like inputs (M = 15, 26 keys, a
+    near-identity T, segments of 256 windows, the alpha stream of the
+    'default' rung), 20 runs: K2 against the plain sweep with each
+    window's per-key sums in f64 (``sum_dtype=float64``), whose value does
+    not move with the order of index_add_'s atomics, at rtol 1e-5 / atol
+    1e-8 of the largest entry, every run."""
+    rng = np.random.RandomState(46)
+    S, L, M, n_keys = 2048, 256, 15, 26
+    T = rng.dirichlet(np.ones(M) * 40, size=M) + np.eye(M) * 50
+    T /= T.sum(1, keepdims=True)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    T, E = f(T), f(rng.uniform(0.05, 1.0, (n_keys, M)))
+    keys = torch.as_tensor(rng.randint(0, n_keys, (S, L)).astype(np.int32), device=dev)
+    valid = torch.as_tensor(rng.rand(S, L) < 0.98, device=dev)
+    A_in, Q_end = f(rng.rand(S, M)), f(rng.rand(S, M))
+    alphas, _ = wk.asc_sweep_plain(T, E, keys, valid, A_in, "default",
+                                   sum_dtype=torch.float64)
+    for _ in range(20):
+        u, xo, gs = wk.dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end)
+        u_p, xo_p, gs_p = wk.dsc_sweep_plain(T, E, keys, valid, alphas, Q_end,
+                                             sum_dtype=torch.float64)
+        _close(u, u_p, 1e-5, 1e-7)
+        _close(xo, xo_p, 1e-5, 1e-8)
+        _close(gs, gs_p, 1e-5, 1e-8)
+
+
+# --- the span kernel and the row-level decode (ops/hmm.py) ------------------
+
+def _span_problem(seed, C, L, M, n_keys, dev, dtype=torch.float32, max_span=300):
+    """(pi, T, E, spans, keys) on the card: C contigs of L rows (chunks of
+    64), the second contig all padding when C > 2, the last one ending in
+    padding rows and an all-padding chunk."""
+    rng = np.random.RandomState(seed)
+    pi = rng.dirichlet(np.ones(M))
+    T = rng.dirichlet(np.ones(M) * 4, size=M) + np.eye(M) * 8
+    T /= T.sum(1, keepdims=True)
+    E = rng.uniform(0.02, 1.0, (n_keys, M))
+    spans = rng.randint(1, max_span, (C, L)).astype(np.int32)
+    if C > 2:
+        spans[1] = 0
+    spans[-1, L - 64 - 5:] = 0
+    keys = rng.randint(0, n_keys, (C, L)).astype(np.int32)
+    keys[spans == 0] = 0
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    return (f(pi), f(T), f(E), torch.as_tensor(spans, device=dev),
+            torch.as_tensor(keys, device=dev))
+
+
+def _launches():
+    return {k.name: k.launches for k in wk.KERNELS}
+
+
+def _launched(before):
+    return {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+
+
+@pytest.mark.parametrize("M", [2, 15, 32])
+@pytest.mark.parametrize("C", [1, 3])
+def test_span_estep_runs_k6_once(dev, M, C):
+    """hmm.estep on the card: one K6 launch over the chunk products (no
+    loop over chunks), and its log-likelihood and gradient (the E-step
+    statistics) against plain autograd through every chunk and the
+    sequential scan on the card (rtol 1e-6 on ll, 1e-4 / atol 1e-6 of the
+    largest entry on the statistics: f32 scans in another order)."""
+    from smcpp_tpu_torch.ops import hmm
+
+    pi, T, E, spans, keys = _span_problem(47, C, 256, M, 40, dev)
+    nbits = int(spans.max()).bit_length()
+    before = _launches()
+    got = hmm.estep(pi, T, E, spans, keys, nbits, 64)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"boundary_scan": 1}
+    x = tuple(v.clone().requires_grad_(True) for v in (pi, T, E))
+    ll = hmm.loglik(*x, spans, keys, nbits, 64)
+    grads = torch.autograd.grad(ll, x)
+    _close(got[0].reshape(1), ll.detach().reshape(1), 1e-6, 0.0)
+    for g, v, gr in zip(got[1:], (pi, T, E), grads):
+        _close(g, v * gr, 1e-4, 1e-6)
+
+
+@pytest.mark.parametrize("M", [2, 15, 16, 17, 32])
+def test_row_powers_k7_matches_twin(dev, M):
+    """K7 on the row max-plus powers (f64, rounded to f32, in K7's layout)
+    with the rows as segments and padding rows unlisted: bit for bit its
+    chunked twin at the plan's chunk length; hmm.viterbi_paths on the card
+    launches K7 once and agrees with the f64 sequential loop on the CPU on
+    at least 99% of rows (f32 forward against f64: near-ties may flip)."""
+    from smcpp_tpu_torch.ops import hmm
+
+    pi, T, E, spans, keys = _span_problem(48, 3, 512, M, 40, dev, torch.float64)
+    C, L = spans.shape
+    nbits = int(spans.max()).bit_length()
+    W = hmm.row_powers(T, E, spans, keys, nbits).transpose(1, 2).float().contiguous()
+    sp = spans.cpu().numpy()
+    table = np.where(sp > 0, np.arange(C * L).reshape(C, L), -1)
+    got = wk.viterbi_boundary_cuda(pi, W, table)
+    want = wk.viterbi_boundary_states_chunked_plain(
+        pi, W, table, wk.boundary_plan(L)[0])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    before = _launches()
+    path = hmm.viterbi_paths(pi, T, E, spans, keys, nbits)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"viterbi_boundary": 1}
+    ref = hmm.viterbi_paths(*(v.cpu() for v in (pi, T, E, spans, keys)), nbits)
+    assert path.dtype == torch.int32 and path.shape == (C, L)
+    assert float((path.cpu() == ref).double().mean()) >= 0.99
+
+
+def test_viterbi_paths_at_one_state_is_zeros(dev):
+    from smcpp_tpu_torch.ops import hmm
+
+    pi, T, E, spans, keys = _span_problem(49, 2, 128, 1, 5, dev, torch.float64)
+    before = _launches()
+    path = hmm.viterbi_paths(pi, T, E, spans, keys, 9)
+    assert _launched(before) == {}
+    assert path.is_cuda and not bool(path.any())
+
+
+def _row_manager(data, dev, M=5):
+    from smcpp_tpu_torch.inference.estimation import balance_hidden_states
+    from smcpp_tpu_torch.inference.manager import OnePopInferenceManager
+    from smcpp_tpu_torch.models import SMCModel
+
+    m = SMCModel([0.01, 3.0], 20000.0, "piecewise")
+    m.y[:] = 0.0
+    im = OnePopInferenceManager(2, [data], balance_hidden_states(m, M + 1),
+                                ("pop1",), 0.5, device=dev)
+    im.set_model(m)
+    im.theta, im.rho, im.alpha = 1e-4, 1e-4, 1
+    return im
+
+
+def test_row_decode_matches_window_decode(dev, monkeypatch):
+    """The manager past the 70% decode gate on the card: the row-level
+    decode (one K6 launch, no window kernel) against the window decode of
+    the same manager (rtol 2e-3 / atol 1e-3, tests/test_decode.py's bound),
+    and the row-level Viterbi (one K7 launch) against the window Viterbi
+    on at least 99% of rows."""
+    rng = np.random.RandomState(50)
+    data = np.zeros((300, 4), dtype=np.int32)
+    data[:, 0] = rng.randint(1, 40, 300)
+    data[:, 1] = rng.randint(0, 3, 300)
+    data[:, 3] = 2
+    data[:, 2] = rng.randint(0, 3, 300)
+    im = _row_manager(data, dev)
+    assert im._use_windows and im._window_decode_fits()
+    im.save_gamma = True
+    im.E_step()
+    g_win = im.gammas[0]
+    p_win = im.map_paths()[0]
+    monkeypatch.setattr(im, "_hbm_budget", lambda frac=0.375: 1.0)
+    pi, T, E = (x.float().contiguous() for x in im.tensors())
+    before = _launches()
+    g_row = im._compute_gammas(pi, T, E)[0]
+    torch.cuda.synchronize()
+    assert _launched(before) == {"boundary_scan": 1}
+    np.testing.assert_allclose(g_row, g_win, rtol=2e-3, atol=1e-3)
+    before = _launches()
+    p_row = im.map_paths()[0]
+    assert _launched(before) == {"viterbi_boundary": 1}
+    assert (p_row == p_win).mean() >= 0.99
+
+
+def test_span_kernel_manager_on_card(dev, monkeypatch):
+    """The manager with the span kernel picked (forced through the cost
+    model's window cost): its E-step launches K6 once (and no window
+    kernel), its decode K6 once more and its MAP paths K7 once; the
+    log-likelihood, the statistics and the row gammas agree with the same
+    manager on the CPU (the plain scans) at rtol 1e-6, 1e-4 / atol 1e-6 of
+    the largest entry, and 1e-4 plus 1e-4 of the row's span; the f64 paths
+    on at least 99% of rows."""
+    from smcpp_tpu_torch.inference.manager import OnePopInferenceManager
+
+    orig = OnePopInferenceManager._init_kernel_choice
+
+    def init(self, data_list, spans):
+        self._total_bases = 1e12
+        return orig(self, data_list, spans)
+
+    monkeypatch.setattr(OnePopInferenceManager, "_init_kernel_choice", init)
+    rng = np.random.RandomState(51)
+    data = np.zeros((400, 4), dtype=np.int32)
+    data[:, 0] = rng.randint(1, 400, 400)
+    data[:, 1] = rng.randint(0, 3, 400)
+    data[:, 3] = 2
+    data[:, 2] = rng.randint(0, 3, 400)
+    ims = [_row_manager(data, d) for d in (dev, torch.device("cpu"))]
+    assert not ims[0]._use_windows
+    for im in ims:
+        im.save_gamma = True
+    before = _launches()
+    ims[0].E_step()
+    torch.cuda.synchronize()
+    assert _launched(before) == {"boundary_scan": 2}
+    ims[1].E_step()
+    np.testing.assert_allclose(ims[0].loglik(), ims[1].loglik(), rtol=1e-6)
+    for a, b in zip(ims[0]._stats, ims[1]._stats):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6 * np.abs(b).max())
+    g, g_p = ims[0].gammas[0], ims[1].gammas[0]
+    assert np.all(np.abs(g - g_p) <= 1e-4 * np.abs(g_p) + 1e-4 * data[:, :1])
+    before = _launches()
+    p = ims[0].map_paths()[0]
+    assert _launched(before) == {"viterbi_boundary": 1}
+    assert (p == ims[1].map_paths()[0]).mean() >= 0.99

@@ -134,18 +134,31 @@ def test_balanced_fallback_matches_jax(smc_files, monkeypatch):
 
 
 def test_span_kernel_choice_raises(smc_files, monkeypatch):
-    "When the cost model picks the span kernel the port raises (ROADMAP A6)."
-    def init(self, data_list, spans):
-        self._total_bases = 1e12
-        return orig(self, data_list, spans)
+    """When the cost model picks the span kernel (forced on both sides) the
+    port runs it (ops/hmm.py; it raised before the span kernel was ported):
+    the stage-2 set-up's E-step agrees with JAX's, at the window E-step's
+    bounds above (both f32, summed in another order)."""
+    for Manager in (jax_analysis.OnePopInferenceManager,
+                    torch_manager.OnePopInferenceManager):
+        orig = Manager._init_kernel_choice
 
-    orig = torch_manager.OnePopInferenceManager._init_kernel_choice
-    monkeypatch.setattr(
-        torch_manager.OnePopInferenceManager, "_init_kernel_choice", init
-    )
+        def init(self, data_list, spans, orig=orig):
+            self._total_bases = 1e12
+            return orig(self, data_list, spans)
+
+        monkeypatch.setattr(Manager, "_init_kernel_choice", init)
     np.random.seed(0)
-    with pytest.raises(NotImplementedError, match="A6"):
-        torch_analysis.Analysis(smc_files, _args())
+    ja = jax_analysis.Analysis(smc_files, _args(precision="highest"))
+    np.random.seed(0)
+    ta = torch_analysis.Analysis(smc_files, _args(precision="highest"))
+    (jim,) = ja._ims.values()
+    (tim,) = ta._ims.values()
+    assert not tim._use_windows and not jim._use_windows
+    np.testing.assert_allclose(ta.hidden_states, ja.hidden_states, rtol=1e-10)
+    np.testing.assert_allclose(ta.model.y, ja.model.y, rtol=1e-8)
+    np.testing.assert_allclose(ta.loglik(), ja.loglik(), rtol=1e-6)
+    for j, t in zip(jim._stats, tim._stats):
+        np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-6 * np.abs(j).max())
 
 
 def test_cli_estimate_cpu(smc_files, tmp_path):

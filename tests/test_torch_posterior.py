@@ -308,20 +308,35 @@ def test_manager_m1_closed_form():
     assert g.shape == (50, 1)
     np.testing.assert_array_equal(g[:, 0], data[:, 0])
     np.testing.assert_array_equal(g, ims[0].gammas[0])
-    with pytest.raises(NotImplementedError, match="A6"):
-        ims[1].map_paths()
+    # the row-level Viterbi at M = 1 (it raised before ops/hmm.py was
+    # ported): every state 0, as JAX's
+    paths = ims[1].map_paths()
+    assert paths[0].dtype == np.int32 and paths[0].shape == (50,)
+    np.testing.assert_array_equal(paths[0], 0)
+    np.testing.assert_array_equal(paths[0], ims[0].map_paths()[0])
 
 
 def test_decode_over_the_gate_raises(monkeypatch):
-    (tim,) = _managers([_data(12, 100)])[1:]
-    monkeypatch.setattr(tim, "_hbm_budget", lambda frac=0.375: 1.0)
-    assert not tim._window_decode_fits()
-    tim.save_gamma = True
-    with pytest.raises(NotImplementedError, match="A6") as e:
-        tim.E_step()
-    assert "windows" in str(e.value) and "gate" in str(e.value)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tim.map_paths()
+    """Past the 70% decode gate and the Viterbi gates the window E-step
+    stays and the decode and MAP paths go row-level (they raised before
+    ops/hmm.py was ported): the port's against JAX's under the same budget,
+    at the bounds of tests/test_torch_decode_rows.py (f32 row gammas: rtol
+    1e-4 plus 1e-4 of the row's span; f64 paths equal)."""
+    monkeypatch.setenv("SMCPP_TPU_DECODE_TRANSFER", "f32")
+    data = _data(12, 100)
+    ims = _managers([data])
+    for im in ims:
+        monkeypatch.setattr(im, "_hbm_budget", lambda frac=0.375: 1.0)
+        im.save_gamma = True
+        im.E_step()
+    jim, tim = ims
+    assert tim._use_windows and not tim._window_decode_fits()
+    g_t, g_j = tim.gammas[0], jim.gammas[0]
+    assert g_t.shape == (100, 5) and g_t.dtype == np.float32
+    np.testing.assert_allclose(g_t.sum(1), data[:, 0], rtol=1e-4)
+    err = np.abs(g_t.astype(np.float64) - g_j) - 1e-4 * np.abs(g_j)
+    assert np.all(err <= 1e-4 * data[:, :1])
+    np.testing.assert_array_equal(tim.map_paths()[0], jim.map_paths()[0])
 
 
 @pytest.fixture(scope="module")

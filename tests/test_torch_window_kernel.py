@@ -406,6 +406,27 @@ def test_asc_sweep_plain_f64_sums(M, precision):
     _close(want[1], ref[0], rtol, atol)  # alpha_end
 
 
+@pytest.mark.parametrize("M", [2, 15, 32])
+def test_dsc_sweep_plain_f64_sums(M):
+    """K2's plain version on the card, the descending sweep with each
+    window's per-key sums formed in f64, against the default plain version
+    (f32 sums, the reference's, which the JAX sweep is held to): u_start
+    and xo equal (the sums only feed gsum), gsum within rtol 1e-5 (the
+    bound chip_smoke holds K2 to), and the f64 sums nearer gsum summed
+    from f64 inputs."""
+    _, T, E, keys, valid, A_in, Q_end = map(
+        torch.as_tensor, _problem(10, 12, 256, M, 89, np.float32))
+    alphas, _ = twk.asc_sweep_plain(T, E, keys, valid, A_in, "highest")
+    got = twk.dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, sum_dtype=torch.float64)
+    want = twk.dsc_sweep_plain(T, E, keys, valid, alphas, Q_end)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2].dtype == torch.float64
+    _close(got[2], want[2], 1e-5, 1e-8)
+    x = twk.dsc_sweep_plain(T.double(), E.double(), keys, valid, alphas.double(),
+                            Q_end.double())[2]
+    assert float((got[2] - x).abs().max()) <= float((want[2] - x).abs().max())
+
+
 def test_f64_sums_track_the_exact_sweep():
     """Why K1 is held to the f32-summed sweep only where that sweep has not
     drifted: with a near-identity T (a fit's, diagonal about 0.9998) the
