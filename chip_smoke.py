@@ -55,7 +55,26 @@ Phases, in order; any failure ends the script with a non-zero exit:
    decode runs row-level by the gate alone (``chr1_posterior``); checks
    the npz and the launches (K3, K6, K1, K2, then K6 in the row decode,
    then K4, K7, K5), prints the wall time, the peak device memory and the
-   row decode's phases.
+   row decode's phases;
+8. two populations (``twopop_path``): joint data (n1 = 10 with the
+   distinguished pair, n2 = 8, the widths of benchmarks/twopop_decode.py)
+   from a known joint model (split 0.4, N0 = 2e4, theta = rho = 1e-3; the
+   port's ``simulate_joint_contig``, seeded), with the true marginal fits as
+   JSON: one joint contig of 100 Mbp for the posterior, and for the split
+   two joint contigs of 50 Mbp (the first is the posterior contig's first
+   half) and one pop-2 contig of 50 Mbp from the truth's splice;
+   ``split --device cuda`` through the CLI (the split within +-25% of the
+   truth; ``Q_split_batch`` on 16 candidates against the same objects on
+   CPU tensors at rtol 1e-9; its wall time and objective evaluations), then
+   ``posterior --device cuda --map --intervals`` at M = 32 on the 100 Mbp
+   joint contig with the split's model: the npz checked as in phase 5, K3,
+   K6, K1, K2, K2g, K4, K7 and K5 launched on the joint emission table,
+   the decode's and the Viterbi's phases, every kernel against its plain
+   version on the two-population manager's own inputs (as in phase 5), and
+   the window decode against the f64 span oracle on a probe of 4000 rows
+   within 5e-2 (``twopop_probe``).  Alone:
+   ``python3 -c 'import chip_smoke as c, tempfile; c.card(); c.build();
+   c.twopop_path(tempfile.mkdtemp())'``.
 
 K2's plain version sums each window's per-key masses in f64
 (``dsc_sweep_plain(..., sum_dtype=float64)``, ``k2_plain``): the f32
@@ -1308,13 +1327,26 @@ def compare_posterior(im, pi, T, E, n_seg=32):
 def posterior_path(workdir, model_json, data):
     """Run posterior through the CLI entry point on one contig and check its
     output; returns (launches, kernel records from compare_posterior)."""
+    out = os.path.join(workdir, "post.npz")
+    im, launches = cli_posterior("posterior", out, model_json, data)
+    pi, T, E = (x.float().contiguous() for x in im.tensors())
+    posterior_breakdown(im, pi, T, E)
+    records = compare_posterior(im, pi, T, E)
+    row_routes(im, np.load(out)[data + "_map"])
+    return launches, records
+
+
+def cli_posterior(label, out, model_json, data):
+    """``posterior --device cuda --map --intervals 0.025,0.5,0.975`` through
+    the CLI entry point on one contig, with every launch count set to 0 just
+    before it; prints the wall time and the peak device memory, checks that
+    the window E-step, decode and Viterbi launched every kernel and checks
+    the npz (``check_posterior_npz``).  Returns (manager, launches)."""
     import torch
 
     from smcpp_tpu_torch.commands import main as cli
     from smcpp_tpu_torch.ops import window_kernel as wk
 
-    out = os.path.join(workdir, "post.npz")
-    intervals = [0.025, 0.5, 0.975]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in wk.KERNELS:
@@ -1322,7 +1354,7 @@ def posterior_path(workdir, model_json, data):
     t0 = time.perf_counter()
     im = cli.main([
         "posterior", "--device", "cuda", "--map", "--intervals",
-        ",".join(map(str, intervals)), model_json, out, data,
+        "0.025,0.5,0.975", model_json, out, data,
     ])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1331,21 +1363,18 @@ def posterior_path(workdir, model_json, data):
 
     M = len(im.hidden_states) - 1
     S, L = im._wkeys.shape
-    log(f"posterior: {wall:.2f} s wall, peak device memory {peak / 1e9:.2f} GB; "
+    log(f"{label}: {wall:.2f} s wall, peak device memory {peak / 1e9:.2f} GB; "
         f"S x L = {(S, L)} ({S * L} windows), M = {M}, "
-        f"{im.em_idx.n_keys} keys; kernel launches {launches}")
+        f"{im.em_idx.n_keys} keys, {int((im._spans > 0).sum())} rows; "
+        f"kernel launches {launches}")
     want = {"segment_ops": 2, "asc_sweep": 2, "dsc_sweep": 1,
             "dsc_sweep_gamma": 1, "viterbi_ops": 1, "viterbi_paths": 1,
             "boundary_scan": 2, "viterbi_boundary": 1}
     short = {n: launches[n] for n, c in want.items() if launches[n] < c}
     if short:
-        raise AssertionError(f"posterior kernels launched too few times: {short}")
+        raise AssertionError(f"{label} kernels launched too few times: {short}")
     check_posterior_npz(out, data, im)
-    pi, T, E = (x.float().contiguous() for x in im.tensors())
-    posterior_breakdown(im, pi, T, E)
-    records = compare_posterior(im, pi, T, E)
-    row_routes(im, np.load(out)[data + "_map"])
-    return launches, records
+    return im, launches
 
 
 def check_posterior_npz(out, data, im):
@@ -1661,6 +1690,237 @@ def chr1_posterior(workdir, model_json):
     row_phases("chr1", im, viterbi=False)
 
 
+# Phase 8, two populations: the joint data's shape is that of
+# benchmarks/twopop_decode.py (n1 = 10 with the distinguished pair, n2 = 8)
+TWOPOP_N = (10, 8)
+TWOPOP_SPLIT = 0.4
+TWOPOP_BP = 100_000_000  # the posterior's joint contig
+SPLIT_BP = 50_000_000  # each contig of the split (see twopop_data)
+TWOPOP_THETA = 1e-3  # 4 N0 mu at N0 = 2e4, mu = 1.25e-8; rho the same
+ORACLE_BOUND = 5e-2  # f32 window decode vs the f64 span oracle, relative
+PROBE_ROWS = 4000
+
+
+def twopop_truth():
+    "The known joint model: model2 at 0.7 of model1's size below the split."
+    from smcpp_tpu_torch.models import SMCModel, SMCTwoPopulationModel
+
+    knots = [0.05, 0.2, 0.8, 3.0]
+    m1 = SMCModel(knots, 2e4, "piecewise", "pop1")
+    m2 = SMCModel(knots, 2e4, "piecewise", "pop2")
+    m2.y[:] = np.log(0.7)
+    return SMCTwoPopulationModel(m1, m2, TWOPOP_SPLIT)
+
+
+def _head(data, bp):
+    "The rows of the first ``bp`` bases of a contig."
+    cs = np.cumsum(data[:, 0].astype(np.int64))
+    i = int(np.searchsorted(cs, bp))
+    head = data[: i + 1].copy()
+    head[-1, 0] -= cs[i] - bp
+    return head
+
+
+def twopop_data(workdir):
+    """The joint data, from the truth, with the true marginal fits as the
+    JSON ``split`` reads.  The posterior decodes one joint contig of
+    TWOPOP_BP bases; the split reads SPLIT_BP bases of each of its contigs
+    (that contig's first half, a second joint contig and one pop-2 contig
+    from the truth's splice): at TWOPOP_BP each, phase 8 made the script
+    more than two minutes longer.  Returns (the posterior's contig, the
+    split's contigs, the fit paths)."""
+    from smcpp_tpu_torch.data import format as fmt
+    from smcpp_tpu_torch.data.simulate import simulate_joint_contig, write_simulated
+
+    truth = twopop_truth()
+    n1, n2 = TWOPOP_N
+    th = TWOPOP_THETA
+    pids = [truth.model1.pid, truth.model2.pid]
+    dist = [[["sim", 0], ["sim", 1]], []]
+    undist = [[["u1", i] for i in range(n1)], [["u2", i] for i in range(n2)]]
+    t0 = time.perf_counter()
+    post = os.path.join(workdir, "joint0.smc.gz")
+    data = simulate_joint_contig(truth, th, th, TWOPOP_BP, n1, n2, seed=SEED + 80)
+    fmt.write_contig(post, data, pids, dist, undist)
+    split = [os.path.join(workdir, f"split_{name}.smc.gz")
+             for name in ("joint0", "joint1", "pop2")]
+    fmt.write_contig(split[0], _head(data, SPLIT_BP), pids, dist, undist)
+    data = simulate_joint_contig(truth, th, th, SPLIT_BP, n1, n2, seed=SEED + 81)
+    fmt.write_contig(split[1], data, pids, dist, undist)
+    write_simulated(split[2], truth.for_pop("pop2"), th, th, L=SPLIT_BP, n=n2,
+                    seed=SEED + 82, pid="pop2")
+    fits = []
+    for m, name in [(truth.model1, "pop1"), (truth.model2, "pop2")]:
+        p = os.path.join(workdir, f"{name}.fit.json")
+        with open(p, "w") as f:
+            json.dump({"theta": th, "rho": th, "alpha": 1, "model": m.to_dict(),
+                       "hidden_states": {m.pid: [0.0, float("inf")]}}, f)
+        fits.append(p)
+    log(f"simulated the joint data (n1 = {n1}, n2 = {n2}, split "
+        f"{TWOPOP_SPLIT}): 1 joint contig x {TWOPOP_BP / 1e6:.0f} Mbp for the "
+        f"posterior, 2 joint and 1 pop-2 contig x {SPLIT_BP / 1e6:.0f} Mbp for "
+        f"the split (the first of its first half): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return post, split, fits
+
+
+def split_objective_cpu(sa, splits):
+    """Q_split_batch at ``splits`` from the same objective objects built on
+    CPU tensors (each manager copied with its device set to the CPU)."""
+    import copy
+
+    import torch
+
+    from smcpp_tpu_torch.inference.manager import TwoPopInferenceManager
+    from smcpp_tpu_torch.ops.split_objective import (
+        MarginalSplitObjective,
+        SplitObjective,
+    )
+
+    const, _ = sa._split_parts()
+    tot = np.full(len(splits), const)
+    pid1 = sa.model.pids[0]
+    for im in sa._ims.values():
+        c = copy.copy(im)
+        c._device = torch.device("cpu")
+        if isinstance(im, TwoPopInferenceManager):
+            tot = tot + SplitObjective(c).q_batch(splits)
+        elif im.pid != (pid1,):
+            tot = tot + MarginalSplitObjective(c, sa.model).q_batch(splits)
+    return tot
+
+
+def twopop_split(workdir, files, fits):
+    """``split --device cuda`` through the CLI entry point on the joint and
+    the marginal contigs: the split within +-25% of the truth, the card's
+    Q_split_batch on 16 candidates against the same objects on CPU tensors
+    at rtol 1e-9; prints the wall time and the objective evaluations.
+    Returns the fitted model.final.json."""
+    import torch
+
+    from smcpp_tpu_torch.commands import main as cli
+    from smcpp_tpu_torch.inference import split as split_mod
+
+    calls = []
+    orig = split_mod.SplitAnalysis.Q_split_batch
+
+    def counted(self, splits):
+        calls.append(len(splits))
+        return orig(self, splits)
+
+    out = os.path.join(workdir, "split")
+    split_mod.SplitAnalysis.Q_split_batch = counted
+    t0 = time.perf_counter()
+    try:
+        sa = cli.main(["split", "--device", "cuda", "-o", out, *fits, *files])
+    finally:
+        split_mod.SplitAnalysis.Q_split_batch = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = sa.model.split
+    managers = {pid: (type(im).__name__, im.em_idx.n_keys)
+                for pid, im in sa._ims.items()}
+    log(f"split: {wall:.2f} s wall; split {got!r} (truth {TWOPOP_SPLIT}, "
+        f"{(got - TWOPOP_SPLIT) / TWOPOP_SPLIT:+.2%}); loglik {sa.loglik()!r}; "
+        f"{len(calls)} batched objective calls, {sum(calls)} split candidates "
+        f"(batch widths {calls}); managers {managers}")
+    if not (np.isfinite(got) and 0.75 * TWOPOP_SPLIT < got < 1.25 * TWOPOP_SPLIT):
+        raise AssertionError(f"split {got} is not within 25% of {TWOPOP_SPLIT}")
+    splits = np.linspace(0.02, 0.98, 16) * sa._max_split
+    card = sa.Q_split_batch(splits)
+    cpu = split_objective_cpu(sa, splits)
+    err = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sa.Q_split_batch(splits)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    log(f"  Q_split_batch on 16 candidates: card against CPU tensors, largest "
+        f"relative difference {err:.3e} (rtol 1e-9); {ms:.2f} ms a batch on the card")
+    if not (np.all(np.isfinite(card)) and err <= 1e-9):
+        raise AssertionError(f"Q_split_batch on the card is {err:.3e} from the CPU's")
+    with open(os.path.join(out, "model.final.json")) as f:
+        d = json.load(f)
+    if d["model"]["class"] != "SMCTwoPopulationModel":
+        raise AssertionError(f"split wrote a {d['model']['class']}")
+    return os.path.join(out, "model.final.json")
+
+
+def twopop_probe(im, data):
+    """The window decode against the f64 span oracle on the first PROBE_ROWS
+    rows of the contig, as a contig of their own: a manager with the
+    posterior's model, parameters and hidden states decodes them through
+    the window kernels on the card (f32, the posterior's rung), and
+    ``hmm.posterior_gammas`` gives the f64 oracle on the card; the largest
+    error relative to max(|oracle|, 1e-2) must stay within ORACLE_BOUND."""
+    import torch
+
+    from smcpp_tpu_torch.data import format as fmt
+    from smcpp_tpu_torch.inference.manager import TwoPopInferenceManager
+    from smcpp_tpu_torch.ops import hmm
+
+    c = fmt.load_data([data])[0]
+    obs = np.insert(c.data[: PROBE_ROWS - 1], 0, [[1, -1, 0, 0, -1, 0, 0]], 0)
+    pm = TwoPopInferenceManager(c.n[0], c.n[1], c.a[0], c.a[1], [obs],
+                                im.hidden_states, tuple(c.pid), 0.5,
+                                device="cuda", precision=im._precision)
+    if not pm._use_windows:
+        raise AssertionError("the probe manager must run the window kernels")
+    pm.set_model(im.model)
+    pm.theta, pm.rho, pm.alpha = im.theta, im.rho, im.alpha
+    pm.save_gamma = True
+    pm.E_step()
+    g32 = pm.gammas[0]
+    pi, T, E = pm.tensors()
+    ref = hmm.posterior_gammas(
+        pi, T, E, torch.as_tensor(pm._spans[0], device="cuda"),
+        torch.as_tensor(pm._keys[0], device="cuda"), pm._nbits, pm._chunk,
+    ).cpu().numpy()
+    reps = pm._row_reps[0]
+    offs = np.concatenate([[0], np.cumsum(reps)[:-1]])
+    ref = np.add.reduceat(ref[: int(reps.sum())], offs, axis=0)
+    err = float(np.max(np.abs(g32 - ref) / np.maximum(np.abs(ref), 1e-2)))
+    rowerr = float(np.max(np.abs(g32.sum(1) - obs[:, 0]) / obs[:, 0]))
+    log(f"  probe ({len(obs)} rows, {int(obs[:, 0].sum())} bp, "
+        f"{pm.em_idx.n_keys} keys, rung {pm._decode_precision()!r}): window "
+        f"decode against the f64 span oracle, largest relative error {err:.3e} "
+        f"(bound {ORACLE_BOUND}); row masses within {rowerr:.2e} of the spans")
+    if not err <= ORACLE_BOUND or rowerr > 1e-3:
+        raise AssertionError(f"two-population decode {err:.3e} from the f64 oracle")
+
+
+def twopop_path(workdir):
+    """Phase 8: two populations.  Simulates the joint data (``twopop_data``),
+    runs ``split --device cuda`` (``twopop_split``), then ``posterior
+    --device cuda --map --intervals`` at M = 32 on the first joint contig
+    with the split's model (``cli_posterior``: the window E-step, decode and
+    Viterbi on the joint emission table, every kernel launched); prints the
+    decode's and the Viterbi's phases, holds every kernel against its plain
+    version on the two-population manager's own inputs
+    (``compare_posterior``) and the window decode against the f64 span
+    oracle (``twopop_probe``)."""
+    t0 = time.perf_counter()
+    post, split, fits = twopop_data(workdir)
+    model_json = twopop_split(workdir, split, fits)
+    out = os.path.join(workdir, "twopop.npz")
+    im, launches = cli_posterior("posterior [two populations]", out, model_json,
+                                 post)
+    log(f"  joint emission table: {im.em_idx.n_keys} keys x M = "
+        f"{len(im.hidden_states) - 1} ({im.em_idx.n_keys * (len(im.hidden_states) - 1) * 4} "
+        f"bytes in f32), n = {im.n}, (a1, a2) = {(im.a1, im.a2)}")
+    t1 = time.perf_counter()
+    im._tensors_cache = (None, None)
+    im.tensors()
+    log(f"  tensors() with the host JCSFS, uncached: "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+    pi, T, E = (x.float().contiguous() for x in im.tensors())
+    posterior_breakdown(im, pi, T, E)
+    compare_posterior(im, pi, T, E)
+    twopop_probe(im, post)
+    log(f"phase 8 (two populations): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
     """Milliseconds of each phase of estep_direct (CUDA events around each
     call, after one warm-up run)."""
@@ -1763,6 +2023,8 @@ def main():
         post_launches, post_records = posterior_path(workdir, model_json, files[0])
         c3_throughput()
         chr1_posterior(workdir, model_json)
+    with tempfile.TemporaryDirectory() as workdir:
+        twopop_path(workdir)
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     # K1-K3 and K6 from the estimate path, K2g, K4, K5 and K7 from the

@@ -1,14 +1,14 @@
 """Console entry point: subcommand registry (mirrors smcpp/frontend/console.py).
 
-The port registers ``estimate``, ``posterior``, ``version`` and ``cite``;
-the other commands of the JAX package are not ported yet (ROADMAP A1, A7,
-A9)."""
+The port registers ``estimate``, ``posterior``, ``split``, ``version`` and
+``cite``; the other commands of the JAX package are not ported yet (ROADMAP
+A1, A9)."""
 
 import argparse
 
 
 def main(argv=None):
-    from . import cite, estimate, posterior, version  # noqa: F401
+    from . import cite, estimate, posterior, split, version  # noqa: F401
     from .command import ConsoleCommand
 
     parser = argparse.ArgumentParser(prog="smc++")

@@ -1,8 +1,7 @@
 """smc++ posterior: decode the posterior TMRCA distribution along contigs.
 
-Port of smcpp_tpu/commands/posterior.py for one population, on one device
-(``--device``).  The two-population posterior (ROADMAP A7) and multi-host
-ingestion (A8) are not ported."""
+Port of smcpp_tpu/commands/posterior.py for one and two populations, on one
+device (``--device``).  Multi-host ingestion (ROADMAP A8) is not ported."""
 
 import json
 import logging
@@ -12,7 +11,7 @@ import numpy as np
 
 from ..data import format as fmt
 from ..inference import estimation
-from ..inference.manager import OnePopInferenceManager
+from ..inference.manager import make_manager
 from ..models import model_from_dict
 from . import command
 
@@ -99,15 +98,10 @@ class Posterior(command.Command, command.ConsoleCommand):
             from ..data.filters import thin_data
 
             all_obs = [thin_data(o, args.thinning) for o in all_obs]
-        pid, n = contigs[0].pid, contigs[0].n
-        if len(n) != 1:
-            raise NotImplementedError(
-                "the two-population posterior is not ported yet (ROADMAP A7)"
-            )
-        im = OnePopInferenceManager(
-            n[0], all_obs, hidden_states, tuple(pid), args.polarization_error,
-            device=args.device, precision=args.precision,
-        )
+        c = contigs[0]
+        im = make_manager(c.n, c.a, all_obs, hidden_states, tuple(c.pid),
+                          args.polarization_error, device=args.device,
+                          precision=args.precision)
         im.set_model(m)
         im.theta = j["theta"]
         im.rho = j["rho"]

@@ -17,7 +17,7 @@ from .. import defaults
 from ..data import filters as df
 from ..models import SMCModel
 from . import estimation
-from .manager import OnePopInferenceManager, resolve_device
+from .manager import make_manager, resolve_device
 from .optimizer import SMCPPOptimizer
 
 logger = logging.getLogger(__name__)
@@ -64,21 +64,31 @@ class BaseAnalysis:
 
     # ------------------------------------------------------------------
     def _init_inference_manager(self, polarization_error, hs):
+        """One manager per population tuple, one- or two-population
+        (``make_manager``); the joint contigs of a pid must share their
+        distinguished layout."""
         d = {}
         max_n = {}
+        a_by_pid = {}
         for c in self.contigs:
             d.setdefault(c.pid, []).append(c)
-            max_n.setdefault(c.pid, -1)
-            max_n[c.pid] = int(np.maximum(max_n[c.pid], c.n[0] if len(c.n) else 0))
+            cur = max_n.setdefault(c.pid, np.zeros(len(c.n), dtype=int))
+            max_n[c.pid] = np.maximum(cur, c.n)
+            a_by_pid.setdefault(c.pid, set()).add(tuple(c.a))
         self._ims = {}
+        prec = getattr(self._args, "precision", None)
         for pid in d:
-            data = [c.data for c in d[pid]]
-            assert len(pid) == 1, "two populations are not ported yet (ROADMAP A7)"
-            im = OnePopInferenceManager(
-                max_n[pid], data, hs, pid, polarization_error,
-                device=self._device,
-                precision=getattr(self._args, "precision", None),
-            )
+            a = None  # a one-population manager takes a = 2
+            if len(pid) == 2:
+                if len(a_by_pid[pid]) != 1:
+                    raise RuntimeError(
+                        f"the joint contigs of {pid} place the distinguished "
+                        f"lineages differently: {sorted(a_by_pid[pid])}"
+                    )
+                (a,) = a_by_pid[pid]
+            im = make_manager(max_n[pid], a, [c.data for c in d[pid]], hs, pid,
+                              polarization_error, device=self._device,
+                              precision=prec)
             im.set_model(self._model)
             im.theta = self._theta
             im.rho = self._rho

@@ -871,6 +871,29 @@ class SMCPPOptimizer:
         self._old_loglik = ll
 
 
+
+class TwoPopulationOptimizer(SMCPPOptimizer):
+    "Split-time-only optimization (optimizers.py:246-260)."
+
+    def __init__(self, *args, max_split=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._max_split = max_split
+
+    def _coordinates(self):
+        return []
+
+    def run(self, niter):
+        try:
+            for i in range(niter):
+                self._analysis.E_step()
+                ll = self._maybe_raise_precision(self._analysis.loglik())
+                self._check_termination(ll)
+                self._optimize_param("split", (0.0, self._max_split))
+        except EMTerminationException:
+            pass
+        if self._outdir:
+            self._analysis.dump(os.path.join(self._outdir, f"{self._base}.final"))
+
 def ascii_size_history(model, width=60, height=10):
     """Text rendering of N(t) for the EM log (parity with the reference's
     gnuplot ascii_plotter plugin, without the gnuplot dependency)."""

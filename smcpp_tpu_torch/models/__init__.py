@@ -1,1 +1,6 @@
-from .model import PiecewiseModel, SMCModel, model_from_dict  # noqa: F401
+from .model import (  # noqa: F401
+    PiecewiseModel,
+    SMCModel,
+    SMCTwoPopulationModel,
+    model_from_dict,
+)

@@ -1,6 +1,6 @@
 """Size-history models, in torch.
 
-Port of the one-population half of smcpp_tpu/models/model.py: the same
+Port of smcpp_tpu/models/model.py (without the msprime export): the same
 semantics and the same JSON as the reference's model classes
 (SMC++ smcpp/model.py).  Parameters live in a NumPy float vector
 ``y``; every derived quantity is a torch function of it, so autograd gives
@@ -190,11 +190,117 @@ class SMCModel:
         return r
 
 
-def model_from_dict(d):
-    """Read a model JSON dict as written by ``SMCModel.to_dict`` of either
-    package.  The two-population model is not part of this port yet."""
-    if d["class"] != "SMCModel":
-        raise NotImplementedError(
-            f"model class {d['class']!r} is not ported yet (ROADMAP A7)"
+class SMCTwoPopulationModel:
+    "Joint model: two marginal SMCModels and a split time (model.py:260-436)."
+
+    NPOP = 2
+
+    def __init__(self, model1, model2, split):
+        self.model1 = model1
+        self.model2 = model2
+        self._split = float(split)
+
+    @property
+    def N0(self):
+        assert self.model1.N0 == self.model2.N0
+        return self.model1.N0
+
+    @property
+    def distinguished_model(self):
+        return self.model1
+
+    @property
+    def split(self):
+        return self._split
+
+    @split.setter
+    def split(self, x):
+        self._split = float(x)
+
+    @property
+    def split_ind(self):
+        "k such that model2.knots[k] <= split < model2.knots[k+1]."
+        return np.searchsorted(self.model2.knots, self._split, side="right") - 1
+
+    @property
+    def s(self):
+        return self.model1.s
+
+    @property
+    def K(self):
+        return self.model1.K
+
+    @property
+    def pids(self):
+        return [self.model1.pid, self.model2.pid]
+
+    def for_pop(self, pid):
+        """Marginal model for one population.
+
+        pid None = "distinguished lineages apart": infinite size before the
+        split, model1 after (model.py:279-292).
+        """
+        if pid is None:
+            a = self.model1.stepwise_values()
+            cs = cumsum0(self.model1.s)
+            cs[-1] = np.inf
+            ip = np.searchsorted(cs, self._split)
+            sp = np.diff(np.insert(cs, ip, self._split))
+            sp[-1] = 1.0
+            s = sp[ip - 1 :]
+            s[0] = self.split
+            a = np.insert(a[ip - 1 :], 0, np.inf)
+            return PiecewiseModel(a, s, None)
+        i = self.pids.index(pid)
+        if i == 0:
+            return self.model1
+        # pop 2: model2 below the split, model1 above (model.py:293-313)
+        m1, m2 = self.model1, self.model2
+        assert m1.N0 == m2.N0
+        kts = np.unique(np.sort(np.r_[m1.knots, m2.knots, self._split]))
+        i = np.searchsorted(kts, self._split)
+        m = SMCModel(kts, m1.N0, m2._spline_name, m2.pid)
+        vals = np.empty(len(kts))
+        vals[:i] = m2(kts[:i])
+        vals[i] = m1(np.array([self._split]))[0]
+        vals[i + 1 :] = m1(kts[i + 1 :])
+        m.set_knot_values(vals)
+        return m
+
+    def regularizer(self):
+        return sum(
+            float(self.for_pop(pid).regularizer()) for pid in self.pids
         )
-    return SMCModel.from_dict(d)
+
+    def randomize(self, rng=np.random):
+        self.model1.randomize(rng)
+        self.model2.randomize(rng)
+
+    def copy(self):
+        return model_from_dict(self.to_dict())
+
+    def to_dict(self):
+        return {
+            "class": "SMCTwoPopulationModel",
+            "model1": self.model1.to_dict(),
+            "model2": self.model2.to_dict(),
+            "split": float(self._split),
+        }
+
+    @classmethod
+    def from_dict(cls, d):
+        assert d["class"] == "SMCTwoPopulationModel"
+        return cls(
+            SMCModel.from_dict(d["model1"]),
+            SMCModel.from_dict(d["model2"]),
+            d["split"],
+        )
+
+
+def model_from_dict(d):
+    """Read a model JSON dict as written by ``to_dict`` of either package."""
+    cls = {
+        "SMCModel": SMCModel,
+        "SMCTwoPopulationModel": SMCTwoPopulationModel,
+    }[d["class"]]
+    return cls.from_dict(d)

@@ -319,8 +319,11 @@ def cached_matrices(n: int) -> MatrixCache:
 
     M0, M1 = _exact_below_matrices(n)
 
+    # a copy, not the reversed view: torch refuses negative strides, and
+    # np.ascontiguousarray keeps them on a (1, 1) array (n = 1)
     mc = MatrixCache(
-        X0=X0, X2=X2, M0=M0, M1=M1, Uinv0=mse.Uinv, Uinv2=mse.Uinv[:, ::-1]
+        X0=X0, X2=X2, M0=M0, M1=M1, Uinv0=mse.Uinv,
+        Uinv2=mse.Uinv[:, ::-1].copy(),
     )
     try:
         os.makedirs(_DISK_CACHE_DIR, exist_ok=True)

@@ -61,7 +61,8 @@ class TimeGrid:
 
     def segment_matrix(self) -> np.ndarray:
         "Static (M, K) 0/1 matrix summing pieces into their hidden interval."
-        seg = np.zeros((self.M, self.K), dtype=self.dt.dtype)
+        dtype = self.dt.dtype if isinstance(self.dt, np.ndarray) else np.float64
+        seg = np.zeros((self.M, self.K), dtype=dtype)
         idx = np.arange(self.K)[self.piece_valid]
         seg[self.interval_of_piece[self.piece_valid], idx] = 1.0
         return seg

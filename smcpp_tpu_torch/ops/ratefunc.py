@@ -2,8 +2,9 @@
 
 Port of smcpp_tpu/ops/ratefunc.py.  Every function takes the per-piece
 population-size tensor ``a`` with any leading batch dimensions (``(..., K0)``)
-and a static ``TimeGrid``; results carry the same leading dimensions.  The
-closed forms are those of the reference
+and a ``TimeGrid`` whose index maps are static (its times and widths may be
+tensors: ops/split_objective.py); results carry the same leading
+dimensions.  The closed forms are those of the reference
 (SMC++ src/piecewise_constant_rate_function.cpp):
 
 * the terminal infinite piece has the finite width ``defaults.BIG_T``, so
@@ -32,7 +33,11 @@ def nC2(v):
 
 
 def _const(x, like):
-    "A static numpy array as a tensor on ``like``'s device and dtype."
+    """A static numpy array as a tensor on ``like``'s device and dtype (a
+    tensor, such as the piece widths of a grid that depends on a traced
+    split time, passes through)."""
+    if torch.is_tensor(x):
+        return x.to(dtype=like.dtype, device=like.device)
     return torch.as_tensor(
         np.ascontiguousarray(x), dtype=like.dtype, device=like.device
     )

@@ -1171,3 +1171,107 @@ def test_span_kernel_manager_on_card(dev, monkeypatch):
     p = ims[0].map_paths()[0]
     assert _launched(before) == {"viterbi_boundary": 1}
     assert (p == ims[1].map_paths()[0]).mean() >= 0.99
+
+
+# --- two populations on the card (ROADMAP A7) -------------------------------
+
+def _twopop_managers(M, dev, hs=None, L=200_000):
+    """The two-population manager (n1 = 10, n2 = 8, a1 = 2, a2 = 0) on a
+    simulated joint contig, on the card and on the CPU, at 'highest'."""
+    from smcpp_tpu_torch.data.simulate import simulate_joint_contig
+    from smcpp_tpu_torch.inference.estimation import balance_hidden_states
+    from smcpp_tpu_torch.inference.manager import TwoPopInferenceManager
+    from smcpp_tpu_torch.models import SMCModel, SMCTwoPopulationModel
+
+    m1 = SMCModel([0.05, 0.2, 0.8, 3.0], 2e4, "piecewise", "pop1")
+    m2 = SMCModel([0.05, 0.2, 0.8, 3.0], 2e4, "piecewise", "pop2")
+    m2.y[:] = np.log(0.7)
+    jm = SMCTwoPopulationModel(m1, m2, 0.4)
+    data = simulate_joint_contig(jm, 2e-3, 2e-3, L, 10, 8, seed=4)
+    data = np.insert(data, 0, [[1, -1, 0, 0, -1, 0, 0]], 0)
+    if hs is None:
+        hs = balance_hidden_states(m1, M + 1)
+    ims = []
+    for d in (dev, torch.device("cpu")):
+        im = TwoPopInferenceManager(10, 8, 2, 0, [data], hs, ("pop1", "pop2"),
+                                    0.5, device=d, precision="highest")
+        im.set_model(jm)
+        im.theta, im.rho, im.alpha = 2e-3, 2e-3, 1
+        ims.append(im)
+    return ims, data
+
+
+def _nearer_or_within(card, cpu, ref, floor, rtol):
+    """The card's largest relative distance from the f64 reference is within
+    ``rtol``, or no larger than the CPU's (the f32-summed plain loops), as
+    chip_smoke's check_k1 holds K1: K3 and K1 sum in f64 on the card, so
+    over long contigs the CPU's f32 sums are the ones that drift."""
+    d_card = float(np.max(np.abs(card - ref) / (np.abs(ref) + floor)))
+    d_cpu = float(np.max(np.abs(cpu - ref) / (np.abs(ref) + floor)))
+    assert d_card <= max(rtol, d_cpu), (d_card, d_cpu)
+    return d_card, d_cpu
+
+
+@pytest.mark.parametrize("M", [16, 32])
+def test_twopop_window_estep_and_decode_on_card(dev, M):
+    """The two-population manager's window E-step, decode and MAP paths on
+    the card (K3, K6, K1, K2; K3, K6, K1, K2g; K4, K7, K5 on the joint
+    emission table) against the same manager on CPU tensors: ll rtol 1e-5;
+    the statistics (atol 1e-6 of the largest entry) and the row gammas
+    (atol one base) within rtol 1e-4 of the same E-step and decode in f64,
+    or nearer them than the CPU's f32 loops (which drift about 1e-3 from
+    f64 over this 200 kbp contig, measured); MAP states on 99.9% of rows."""
+    (gim, cim), data = _twopop_managers(M, dev)
+    assert gim._use_windows and gim.em_idx.n_keys > 50
+    for im in (gim, cim):
+        im.save_gamma = True
+    before = _launches()
+    gim.E_step()
+    torch.cuda.synchronize()
+    assert _launched(before) == {"segment_ops": 2, "boundary_scan": 2,
+                                 "asc_sweep": 2, "dsc_sweep": 1,
+                                 "dsc_sweep_gamma": 1}
+    cim.E_step()
+    np.testing.assert_allclose(gim.loglik(), cim.loglik(), rtol=1e-5)
+    pi, T, E = cim.tensors()  # f64: the plain loops run in f64
+    ref = wk.estep_direct(pi, T, E, cim._wkeys, cim._wvalid, cim._soc,
+                          precision="highest")[1:]
+    for a, b, r in zip(gim._stats, cim._stats, ref):
+        r = r.numpy()
+        _nearer_or_within(a, b, r, 1e-6 * np.abs(r).max(), 1e-4)
+    g64 = cim._compute_gammas(pi, T, E)[0].astype(np.float64)
+    _nearer_or_within(gim.gammas[0], cim.gammas[0], g64, 1.0, 1e-4)
+    np.testing.assert_allclose(gim.gammas[0].sum(1), data[:, 0], rtol=1e-4)
+    before = _launches()
+    p = gim.map_paths()[0]
+    torch.cuda.synchronize()
+    assert _launched(before) == {"viterbi_ops": 1, "viterbi_boundary": 1,
+                                 "viterbi_paths": 1}
+    assert (p == cim.map_paths()[0]).mean() >= 0.999
+
+
+def test_split_objective_on_card(dev):
+    """SplitObjective and MarginalSplitObjective on the card against the CPU
+    at rtol 1e-9 (both float64), values and dQ/dsplit, on 16 candidates."""
+    from smcpp_tpu_torch.inference.manager import OnePopInferenceManager
+
+    (gim, cim), data = _twopop_managers(1, dev, hs=np.array([0.0, np.inf]),
+                                         L=100_000)
+    splits = np.linspace(0.02, 2.9, 16)
+    for im in (gim, cim):
+        im.E_step()
+    go, co = gim.split_objective(), cim.split_objective()
+    np.testing.assert_allclose(go.q_batch(splits), co.q_batch(splits), rtol=1e-9)
+    for s in (0.15, 1.2):
+        np.testing.assert_allclose(go.q_and_grad(s), co.q_and_grad(s), rtol=1e-9)
+    marg = np.c_[data[:, 0], data[:, 4:7]]  # the pop-2 columns
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        im = OnePopInferenceManager(8, [marg], np.array([0.0, np.inf]),
+                                    ("pop2",), 0.5, device=d)
+        im.set_model(gim.model)
+        im.theta, im.rho, im.alpha = 2e-3, 2e-3, 1
+        im.E_step()
+        outs.append(im.marginal_split_objective())
+    np.testing.assert_allclose(outs[0].q_batch(splits), outs[1].q_batch(splits),
+                               rtol=1e-9)

@@ -88,6 +88,28 @@ def test_format_round_trip_is_byte_identical(files):
         assert tfmt.load_header(ft) == jfmt.load_header(fj)
 
 
+
+@pytest.mark.parametrize("case", ["zero_spans", "repeats", "joint", "empty"])
+def test_write_contig_run_length_edges(case, tmp_path):
+    """The port's one-pass writer gives the text of JAX's row-by-row
+    RunLengthWriter: consecutive rows of one key summed, runs of span 0
+    dropped (also between two rows of one key), one- and two-population
+    rows, no rows."""
+    rng = np.random.RandomState(4)
+    ncol = 7 if case == "joint" else 4
+    d = np.zeros((0 if case == "empty" else 500, ncol), np.int64)
+    if len(d):
+        d[:, 0] = rng.randint(0, 4 if case == "zero_spans" else 30, len(d))
+        d[:, 1:] = rng.randint(0, 2 if case == "repeats" else 3, (len(d), ncol - 1))
+    pids = ["a", "b"] if case == "joint" else ["a"]
+    texts = []
+    for fmt in (jfmt, tfmt):
+        fn = str(tmp_path / f"{fmt.__name__}.smc.gz")
+        fmt.write_contig(fn, d, pids, [[]] * len(pids), [[]] * len(pids))
+        with gzip.open(fn, "rt") as f:
+            texts.append(f.read())
+    assert texts[1] == texts[0]
+
 def test_simulator_matches_jax():
     "The port's simulator draws the same data from the same seed."
     got = tsim(_model(TorchModel), 2e-4, 2e-4, 300_000, 6, seed=3)

@@ -185,5 +185,10 @@ def test_model_json_round_trips_between_packages(tmp_path):
                                rtol=1e-12)
     back = jmodel.model_from_dict(json.loads(json.dumps(tm.to_dict())))
     np.testing.assert_array_equal(back.y, jm.y)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tmodel.model_from_dict({"class": "SMCTwoPopulationModel"})
+    # the two-population model reads across the packages too (it raised
+    # before ROADMAP A7 was ported)
+    jj = jmodel.SMCTwoPopulationModel(jm, jmodel.model_from_dict(jm.to_dict()), 0.3)
+    tj = tmodel.model_from_dict(json.loads(json.dumps(jj.to_dict())))
+    assert isinstance(tj, tmodel.SMCTwoPopulationModel)
+    assert tj.to_dict() == jj.to_dict()
+    assert jmodel.model_from_dict(tj.to_dict()).to_dict() == jj.to_dict()
