@@ -74,7 +74,20 @@ Phases, in order; any failure ends the script with a non-zero exit:
    the window decode against the f64 span oracle on a probe of 4000 rows
    within 5e-2 (``twopop_probe``).  Alone:
    ``python3 -c 'import chip_smoke as c, tempfile; c.card(); c.build();
-   c.twopop_path(tempfile.mkdtemp())'``.
+   c.twopop_path(tempfile.mkdtemp())'``;
+9. the user's front end (``frontend_path``): 2 contigs x 50 Mbp from phase
+   4's truth (theta = rho = 5e-4, 18 undistinguished haplotypes, seeds of
+   their own) written as a VCF of 10 samples (``write_vcf``: s0 the
+   distinguished pair), converted by ``vcf2smc`` through the CLI (records
+   and Mbp per second; the rows read back must be the simulated rows with
+   the fully derived sites folded: ``check_vcf2smc``), ``chunk -w 5000000
+   4`` on the first, ``cv --device cuda --folds 2 --rp-values 4,6
+   --em-iterations 1`` on both (K3, K6, K1 and K2 launched, each fold's best
+   model and their aggregate checked, the device memory at the end of each
+   fold printed), the same ``cv`` again (the resume: no launch, no fit, the
+   same model.final.json), then ``simulate --engine hmm`` from the
+   aggregate (n = 10, 1 Mbp).  Alone: ``python3 -c 'import chip_smoke as c,
+   tempfile; c.card(); c.build(); c.frontend_path(tempfile.mkdtemp())'``.
 
 K2's plain version sums each window's per-key masses in f64
 (``dsc_sweep_plain(..., sum_dtype=float64)``, ``k2_plain``): the f32
@@ -145,6 +158,8 @@ is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is present.
 """
 
+import contextlib
+import gzip
 import json
 import os
 import subprocess
@@ -1042,16 +1057,23 @@ def compare_main_path(im):
     return records
 
 
-def simulate(workdir, name, L_bp, seed, n=20):
-    """One contig of L_bp bases, n = 20 haplotypes, from the slice's truth
-    (the port's data/simulate.py, theta = rho = 2.5e-4); returns its path."""
-    from smcpp_tpu_torch.data.simulate import write_simulated
+def slice_truth():
+    "The slice's truth: knots 0.01, 0.1, 1, 5 (piecewise), N0 = 1e4."
     from smcpp_tpu_torch.models.model import SMCModel
 
     truth = SMCModel([0.01, 0.1, 1.0, 5.0], 1e4, "piecewise")
     truth.y[:] = np.log([1.0, 0.3, 1.0, 2.0])
+    return truth
+
+
+def simulate(workdir, name, L_bp, seed, n=20):
+    """One contig of L_bp bases, n = 20 haplotypes, from the slice's truth
+    (the port's data/simulate.py, theta = rho = 2.5e-4); returns its path."""
+    from smcpp_tpu_torch.data.simulate import write_simulated
+
     fn = os.path.join(workdir, f"{name}.smc.gz")
-    write_simulated(fn, truth, 2.5e-4, 2.5e-4, L=L_bp, n=n, seed=seed, pid="pop1")
+    write_simulated(fn, slice_truth(), 2.5e-4, 2.5e-4, L=L_bp, n=n, seed=seed,
+                    pid="pop1")
     return fn
 
 
@@ -1921,6 +1943,289 @@ def twopop_path(workdir):
     return launches
 
 
+# Phase 9, the user's front end: a VCF from the slice's truth through
+# vcf2smc, chunk, cv and simulate, each through the CLI
+FRONTEND_BP = 50_000_000  # each of the two contigs
+FRONTEND_SAMPLES = 10  # s0 the distinguished pair; s1-s9, 18 haplotypes
+FRONTEND_THETA = 5e-4  # theta = rho = 2 N0 mu at N0 = 1e4, mu = 2.5e-8
+FRONTEND_RP = "4,6"  # cv --rp-values
+CHUNK_BP = 5_000_000
+
+
+def write_vcf(fn, contig, data, length, seed):
+    """A gzipped VCF of one contig: a biallelic record (REF A, ALT T, phased
+    GT) at the 1-based position of each segregating row (span 1) of
+    ``data``, the rows (span, a, b, nb = 18) of ``simulate_contig``.  Sample
+    s0 is the distinguished pair (0|0, 0|1 or 1|1 by a); samples s1-s9 carry
+    the b derived alleles over their 18 haplotypes, placed by a permutation
+    drawn from ``seed``; ``##contig`` gives the length.  Written with NumPy
+    in one pass.  Returns the record count."""
+    data = np.asarray(data, np.int64)
+    n_hap = 2 * (FRONTEND_SAMPLES - 1)
+    if np.any(data[:, 3] != n_hap):
+        raise ValueError(f"the rows must have nb = {n_hap}")
+    seg = (data[:, 1] != 0) | (data[:, 2] != 0)
+    if np.any(data[seg, 0] != 1):
+        raise ValueError("a segregating row spans more than one base")
+    pos = np.cumsum(data[:, 0])[seg]
+    a, b = data[seg, 1], data[seg, 2]
+    R = len(pos)
+    rng = np.random.RandomState(seed)
+    hap = np.empty((R, 2 * FRONTEND_SAMPLES), np.uint8)
+    hap[:, 0] = a >= 2
+    hap[:, 1] = a >= 1
+    hap[:, 2:] = rng.random_sample((R, n_hap)).argsort(axis=1) < b[:, None]
+    gt = np.empty((R, 4 * FRONTEND_SAMPLES), np.uint8)  # "x|y\t" a sample
+    gt[:, 0::4] = ord("0") + hap[:, 0::2]
+    gt[:, 1::4] = ord("|")
+    gt[:, 2::4] = ord("0") + hap[:, 1::2]
+    gt[:, 3::4] = ord("\t")
+    gt[:, -1] = ord("\n")
+    lines = np.char.add(f"{contig}\t".encode(), pos.astype("S"))
+    lines = np.char.add(lines, b"\t.\tA\tT\t.\tPASS\t.\tGT\t")
+    lines = np.char.add(lines, gt.view(f"S{gt.shape[1]}").ravel())
+    samples = "\t".join(f"s{i}" for i in range(FRONTEND_SAMPLES))
+    header = (
+        "##fileformat=VCFv4.2\n"
+        f"##contig=<ID={contig},length={length}>\n"
+        '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n'
+        "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t" + samples + "\n"
+    )
+    with gzip.open(fn, "wb", compresslevel=1) as f:
+        f.write(header.encode())
+        f.write(b"".join(lines.tolist()))
+    return R
+
+
+def _smc_body(fn):
+    "The rows of an SMC++ file as text, and its header's JSON."
+    from smcpp_tpu_torch.data import format as fmt
+
+    with fmt.optional_gzip(fn, "rt") as f:
+        head = f.readline()
+        return f.read(), json.loads(head[len("# SMC++ "):])
+
+
+def check_vcf2smc(out, data, length):
+    """vcf2smc's output against the simulated rows: equal, as text, to what
+    ``format.write_contig`` writes for them with every (a, b) = (2, nb) site
+    folded to (0, 0) (runs merged); spans summing to the contig's length;
+    the header's pids, dist and undist as the VCF gives them."""
+    from smcpp_tpu_torch.data import format as fmt
+
+    folded = np.array(data, np.int64)
+    folded[(folded[:, 1] == 2) & (folded[:, 2] == folded[:, 3]), 1:3] = 0
+    want = out + ".want.smc"
+    fmt.write_contig(want, folded, ["pop1"], [], [])
+    got, head = _smc_body(out)
+    if got != _smc_body(want)[0]:
+        raise AssertionError(f"{out}: vcf2smc's rows differ from the simulated rows")
+    os.remove(want)
+    spans = np.array(got.split(), np.int64).reshape(-1, 4)[:, 0]
+    if spans.sum() != length:
+        raise AssertionError(f"{out}: spans sum to {spans.sum()}, not {length}")
+    n = FRONTEND_SAMPLES
+    want_head = {
+        "pids": ["pop1"],
+        "dist": [[["s0", 0], ["s0", 1]]],
+        "undist": [[[f"s{k}", i] for k in range(1, n) for i in (0, 1)]],
+    }
+    if {k: head[k] for k in want_head} != want_head:
+        raise AssertionError(f"{out}: header {head}")
+    return len(spans)
+
+
+def vcf_round_trip(workdir, contig, L_bp, seed):
+    """Phase 9's first step for one contig: simulate L_bp bases from the
+    slice's truth (18 undistinguished haplotypes, theta = rho =
+    FRONTEND_THETA), write them as a VCF (``write_vcf``), run ``vcf2smc``
+    through the CLI and check its output (``check_vcf2smc``).  Returns (the
+    .smc.gz path, the record count, vcf2smc's seconds)."""
+    from smcpp_tpu_torch.commands import main as cli
+    from smcpp_tpu_torch.data.simulate import simulate_contig
+
+    # the CLI imports every command module on its first call: not vcf2smc's
+    from smcpp_tpu_torch.commands import (  # noqa: F401
+        chunk, cite, cv, estimate, plot, posterior, simulate, split, vcf2smc,
+        version,
+    )
+
+    th = FRONTEND_THETA
+    t0 = time.perf_counter()
+    data = simulate_contig(slice_truth(), th, th, L_bp,
+                           2 * (FRONTEND_SAMPLES - 1), seed=seed)
+    vcf = os.path.join(workdir, f"chr{contig}.vcf.gz")
+    n_rec = write_vcf(vcf, contig, data, L_bp, seed)
+    t1 = time.perf_counter()
+    out = os.path.join(workdir, f"chr{contig}.smc.gz")
+    pop = "pop1:" + ",".join(f"s{i}" for i in range(FRONTEND_SAMPLES))
+    cli.main(["vcf2smc", vcf, out, contig, pop])
+    dt = time.perf_counter() - t1
+    rows = check_vcf2smc(out, data, L_bp)
+    log(f"  contig {contig}: {n_rec} VCF records over {L_bp / 1e6:g} Mbp "
+        f"(simulated and written in {t1 - t0:.1f} s); vcf2smc {dt:.2f} s: "
+        f"{n_rec / dt:.0f} records/s, {L_bp / 1e6 / dt:.2f} Mbp/s; {rows} "
+        f"rows, equal to the simulated rows folded")
+    return out, n_rec, dt
+
+
+def frontend_cv(workdir, files):
+    """``cv --device cuda`` on ``files`` (2 folds, FRONTEND_RP, one EM
+    iteration), then the same command again: checks each fold's ``.done``
+    and ``model.best.json``, ``model.final.json`` against the aggregate of
+    the best models read back, the E-step kernels' launches, and that the
+    second run refits nothing (no launch, no fit) and writes the same
+    ``model.final.json``.  Prints the wall times, each training fit's
+    seconds and the device memory at the end of each fold.  Returns the
+    path of ``model.final.json``."""
+    import torch
+
+    from smcpp_tpu_torch.commands import cv as cv_mod
+    from smcpp_tpu_torch.commands import main as cli
+    from smcpp_tpu_torch.inference import analysis as an
+    from smcpp_tpu_torch.models import model as model_mod
+
+    out = os.path.join(workdir, "cv")
+    argv = ["cv", "--device", "cuda", "--folds", "2", "--rp-values",
+            FRONTEND_RP, "--em-iterations", "1", "-o", out,
+            str(FRONTEND_THETA / 2 / 1e4), *files]
+    fits, setups, folds = [], [], []
+    orig_init, orig_run = an.Analysis.__init__, an.Analysis.run
+    orig_mark = cv_mod.mark_completed
+
+    def timed_init(self, data, args):
+        t = time.perf_counter()
+        orig_init(self, data, args)
+        torch.cuda.synchronize()
+        setups.append(time.perf_counter() - t)
+
+    def timed_run(self, niter=None):
+        t = time.perf_counter()
+        ret = orig_run(self, niter)
+        torch.cuda.synchronize()
+        if niter is None:  # a training fit (stage 1 runs one iteration)
+            fits.append(time.perf_counter() - t)
+        return ret
+
+    @contextlib.contextmanager
+    def marked(path):
+        with orig_mark(path) as p:
+            yield p
+        torch.cuda.synchronize()
+        folds.append((torch.cuda.memory_allocated(),
+                      torch.cuda.max_memory_allocated()))
+
+    an.Analysis.__init__, an.Analysis.run = timed_init, timed_run
+    cv_mod.mark_completed = marked
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, launches = launched(lambda: cli.main(argv))
+        wall = time.perf_counter() - t0
+        n_fits, n_setups = len(fits), len(setups)
+        t0 = time.perf_counter()
+        _, resumed = launched(lambda: cli.main(argv))
+        wall2 = time.perf_counter() - t0
+    finally:
+        an.Analysis.__init__, an.Analysis.run = orig_init, orig_run
+        cv_mod.mark_completed = orig_mark
+
+    log(f"  cv --device cuda (2 folds, --rp-values {FRONTEND_RP}, 1 EM "
+        f"iteration): {wall:.2f} s wall; analysis set-ups (data pipeline, "
+        f"stage 1, stage-2 set-up; held-out first in each fold) "
+        f"{[round(t, 2) for t in setups]} s; training fits (one EM "
+        f"iteration) {[round(f, 2) for f in fits]} s; kernel launches "
+        f"{launches}")
+    (a0, p0), (a1, p1) = folds[:2]
+    log(f"  device memory at the end of fold 0 / fold 1: allocated "
+        f"{a0 / 1e6:.1f} / {a1 / 1e6:.1f} MB, peak so far {p0 / 1e9:.3f} / "
+        f"{p1 / 1e9:.3f} GB")
+    if a1 > a0 + 0.05 * p0:
+        raise AssertionError("cv kept the first fold's device memory")
+    missing = [k for k in ("segment_ops", "boundary_scan", "asc_sweep",
+                           "dsc_sweep") if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"cv launched no {missing}")
+    n_rp = len(FRONTEND_RP.split(","))
+    if n_fits != 2 * n_rp:
+        raise AssertionError(f"cv ran {n_fits} training fits, not {2 * n_rp}")
+    best = []
+    for i in range(2):
+        fd = os.path.join(out, f"fold{i}")
+        if not os.path.exists(os.path.join(fd, ".done")):
+            raise AssertionError(f"{fd}/.done is missing")
+        with open(os.path.join(fd, "model.best.json")) as f:
+            best.append(model_mod.SMCModel.from_dict(json.load(f)["model"]))
+    final = os.path.join(out, "model.final.json")
+    with open(final) as f:
+        text = f.read()
+    m = json.loads(text)["model"]
+    want = model_mod.aggregate(*best)
+    if m["class"] != "SMCModel" or not np.all(np.isfinite(m["y"])):
+        raise AssertionError(f"model.final.json: {m}")
+    if not (np.allclose(m["knots"], want.knots, rtol=1e-12, atol=0)
+            and np.allclose(m["y"], want.y, rtol=1e-12, atol=0)):
+        raise AssertionError("model.final.json is not the aggregate of the "
+                             "folds' best models")
+    with open(final) as f:
+        same = f.read() == text
+    log(f"  cv resumed: {wall2:.2f} s wall, kernel launches {resumed}, "
+        f"{len(setups) - n_setups} set-ups, {len(fits) - n_fits} fits; "
+        f"model.final.json {'unchanged' if same else 'CHANGED'}")
+    if resumed or len(fits) != n_fits or len(setups) != n_setups or not same:
+        raise AssertionError("the resumed cv refitted or wrote another model")
+    return final
+
+
+def frontend_path(workdir):
+    """Phase 9: the user's front end on the card.  Two contigs of
+    FRONTEND_BP simulated from the slice's truth go through a VCF and
+    ``vcf2smc`` (``vcf_round_trip``); ``chunk -w CHUNK_BP 4`` cuts the
+    first; ``cv --device cuda`` fits both (``frontend_cv``); ``simulate
+    --engine hmm`` draws 1 Mbp (n = 10) from the aggregate.  Alone:
+    ``python3 -c 'import chip_smoke as c, tempfile; c.card(); c.build();
+    c.frontend_path(tempfile.mkdtemp())'``."""
+    from smcpp_tpu_torch.commands import main as cli
+    from smcpp_tpu_torch.data import format as fmt
+
+    t0 = time.perf_counter()
+    log(f"phase 9 (front end): VCF -> vcf2smc, 2 contigs x "
+        f"{FRONTEND_BP / 1e6:g} Mbp, {FRONTEND_SAMPLES} samples")
+    files, n_rec, secs = [], 0, 0.0
+    for i, contig in enumerate(("1", "2")):
+        out, n, dt = vcf_round_trip(workdir, contig, FRONTEND_BP, SEED + 90 + i)
+        files.append(out)
+        n_rec += n
+        secs += dt
+    log(f"  vcf2smc in all: {n_rec} records, {n_rec / secs:.0f} records/s, "
+        f"{2 * FRONTEND_BP / 1e6 / secs:.2f} Mbp/s (host)")
+
+    os.makedirs(os.path.join(workdir, "chunks"))
+    pattern = os.path.join(workdir, "chunks", "chunk.{}.smc.gz")
+    t1 = time.perf_counter()
+    cli.main(["chunk", "-w", str(CHUNK_BP), "4", pattern, files[0]])
+    got = sorted(os.listdir(os.path.join(workdir, "chunks")))
+    sums = [int(fmt.load_contig(pattern.format(i)).data[:, 0].sum())
+            for i in range(4)]
+    log(f"  chunk -w {CHUNK_BP} 4: {len(got)} files, spans {sums}, "
+        f"{time.perf_counter() - t1:.2f} s")
+    if len(got) != 4 or sums != [CHUNK_BP] * 4:
+        raise AssertionError(f"chunk wrote {got} with spans {sums}")
+
+    final = frontend_cv(workdir, files)
+
+    sim = os.path.join(workdir, "sim.smc.gz")
+    t1 = time.perf_counter()
+    cli.main(["simulate", "--engine", "hmm", final, "10", "1e6", sim])
+    c = fmt.load_contig(sim)
+    log(f"  simulate --engine hmm (n = 10, 1 Mbp): {len(c.data)} rows, "
+        f"n = {c.n}, {time.perf_counter() - t1:.2f} s")
+    if int(c.data[:, 0].sum()) != 1_000_000 or c.n != [18]:
+        raise AssertionError(f"simulate wrote {c.data[:, 0].sum()} bases, n = {c.n}")
+    log(f"phase 9 (front end): {time.perf_counter() - t0:.1f} s")
+
+
 def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
     """Milliseconds of each phase of estep_direct (CUDA events around each
     call, after one warm-up run)."""
@@ -2025,6 +2330,8 @@ def main():
         chr1_posterior(workdir, model_json)
     with tempfile.TemporaryDirectory() as workdir:
         twopop_path(workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        frontend_path(workdir)
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     # K1-K3 and K6 from the estimate path, K2g, K4, K5 and K7 from the

@@ -1,14 +1,17 @@
 """Console entry point: subcommand registry (mirrors smcpp/frontend/console.py).
 
-The port registers ``estimate``, ``posterior``, ``split``, ``version`` and
-``cite``; the other commands of the JAX package are not ported yet (ROADMAP
-A1, A9)."""
+The port has every subcommand of the JAX package: ``vcf2smc``, ``estimate``,
+``cv``, ``split``, ``posterior``, ``chunk``, ``simulate``, ``plot``,
+``version`` and ``cite``.  ``plot`` imports matplotlib only when it draws."""
 
 import argparse
 
 
 def main(argv=None):
-    from . import cite, estimate, posterior, split, version  # noqa: F401
+    from . import (  # noqa: F401
+        chunk, cite, cv, estimate, plot, posterior, simulate, split,
+        vcf2smc, version,
+    )
     from .command import ConsoleCommand
 
     parser = argparse.ArgumentParser(prog="smc++")

@@ -1,6 +1,6 @@
 """Size-history models, in torch.
 
-Port of smcpp_tpu/models/model.py (without the msprime export): the same
+Port of smcpp_tpu/models/model.py: the same
 semantics and the same JSON as the reference's model classes
 (SMC++ smcpp/model.py).  Parameters live in a NumPy float vector
 ``y``; every derived quantity is a torch function of it, so autograd gives
@@ -189,6 +189,19 @@ class SMCModel:
         r.y = np.asarray(d["y"], dtype=np.float64)
         return r
 
+    def to_msp(self):
+        "msprime demographic events for simulation (model.py:247-257)."
+        import msprime as msp
+
+        a = self.stepwise_values() * 2 * self.N0
+        cs = np.r_[0, np.cumsum(self.s)] * 2 * self.N0
+        return [
+            msp.PopulationParametersChange(
+                time=t, initial_size=aa, growth_rate=0, population_id=0
+            )
+            for t, aa in zip(cs, a)
+        ]
+
 
 class SMCTwoPopulationModel:
     "Joint model: two marginal SMCModels and a split time (model.py:260-436)."
@@ -296,6 +309,23 @@ class SMCTwoPopulationModel:
             d["split"],
         )
 
+    def to_msp(self):
+        import msprime as msp
+
+        sp = 2 * self.N0 * self.split
+        m1 = self.for_pop(self.pids[0]).to_msp()
+        m2 = [
+            ev
+            for ev in self.for_pop(self.pids[1]).to_msp()
+            if ev.time < sp
+        ]
+        for ev in m2:
+            ev.population = 1
+        return sorted(
+            m1 + m2 + [msp.MassMigration(time=sp, source=1, dest=0)],
+            key=lambda ev: ev.time,
+        )
+
 
 def model_from_dict(d):
     """Read a model JSON dict as written by ``to_dict`` of either package."""
@@ -304,3 +334,12 @@ def model_from_dict(d):
         "SMCTwoPopulationModel": SMCTwoPopulationModel,
     }[d["class"]]
     return cls.from_dict(d)
+
+
+def aggregate(*models, stat=np.mean):
+    "Mean-of-models over shared knots, for cross-validation (model.py:46-54)."
+    x = np.unique(np.sort([k for m in models for k in m.knots]))
+    yavg = stat(np.array([m(x) * 2 * m.N0 for m in models]), axis=0)
+    ret = SMCModel(x, models[0].N0, "piecewise", models[0].pid)
+    ret.y = np.log(yavg / (2 * models[0].N0))
+    return ret

@@ -1275,3 +1275,61 @@ def test_split_objective_on_card(dev):
         outs.append(im.marginal_split_objective())
     np.testing.assert_allclose(outs[0].q_batch(splits), outs[1].q_batch(splits),
                                rtol=1e-9)
+
+
+def test_cv_on_card(dev, tmp_path):
+    """``cv --device cuda`` at the CPU tests' tiny size (2 contigs x 200 kbp,
+    n = 4, 4 knots, ``--rp-values 4,6``, one EM iteration) runs to its end,
+    writes both folds and the aggregate, and launches K3, K6, K1 and K2.
+    For each fold the held-out Analysis with the fold's best model gives a
+    log-likelihood on the card within rtol 1e-5 of the CPU's (f32 E-steps
+    summed in another order).  The fitted models are not compared: L-BFGS-B
+    may take another path from a last-bit difference."""
+    import argparse
+    import json
+    import os
+
+    from smcpp_tpu_torch.commands import cv as cv_mod
+    from smcpp_tpu_torch.commands import main as cli
+    from smcpp_tpu_torch.data.simulate import write_simulated
+    from smcpp_tpu_torch.inference.analysis import Analysis
+    from smcpp_tpu_torch.models import SMCModel
+
+    true = SMCModel(np.array([0.05, 2.0]), 2e4, "piecewise", "pop1")
+    true.y = np.log(np.array([1.5, 0.8]))
+    files = []
+    for i in range(2):
+        fn = str(tmp_path / f"c{i}.smc.gz")
+        write_simulated(fn, true, 1e-4, 1e-4, L=200_000, n=4, seed=i)
+        files.append(fn)
+    flags = ["--folds", "2", "--em-iterations", "1", "--knots", "4",
+             "--rp-values", "4,6"]
+    out = str(tmp_path / "cv")
+    before = _launches()
+    cli.main(["cv", "--device", "cuda", *flags, "-o", out, "1.25e-8", *files])
+    torch.cuda.synchronize()
+    got = _launched(before)
+    for k in ("segment_ops", "boundary_scan", "asc_sweep", "dsc_sweep"):
+        assert got.get(k, 0) > 0, got
+    with open(os.path.join(out, "model.final.json")) as f:
+        final = json.load(f)
+    assert final["model"]["class"] == "SMCModel"
+    assert np.all(np.isfinite(final["model"]["y"]))
+    for i, fold in enumerate(np.array_split(np.arange(len(files)), 2)):
+        fd = os.path.join(out, f"fold{i}")
+        assert os.path.exists(os.path.join(fd, ".done"))
+        with open(os.path.join(fd, "model.best.json")) as f:
+            best = json.load(f)["model"]
+        lls = []
+        for device in ("cuda", "cpu"):
+            p = argparse.ArgumentParser()
+            cv_mod.Cv(p)
+            args = p.parse_args(["--device", device, *flags, "-o",
+                                 str(tmp_path / f"held_{device}"), "1.25e-8",
+                                 *files])
+            np.random.seed(0)
+            test = Analysis([files[j] for j in fold], args)
+            test.model = SMCModel.from_dict(best)
+            test.E_step()
+            lls.append(test.loglik(False))
+        np.testing.assert_allclose(lls[0], lls[1], rtol=1e-5)
