@@ -87,7 +87,22 @@ Phases, in order; any failure ends the script with a non-zero exit:
    fold printed), the same ``cv`` again (the resume: no launch, no fit, the
    same model.final.json), then ``simulate --engine hmm`` from the
    aggregate (n = 10, 1 Mbp).  Alone: ``python3 -c 'import chip_smoke as c,
-   tempfile; c.card(); c.build(); c.frontend_path(tempfile.mkdtemp())'``.
+   tempfile; c.card(); c.build(); c.frontend_path(tempfile.mkdtemp())'``;
+10. several ranks (``multirank_path``, smcpp_tpu_torch/parallel/): child
+   processes through the CLI, each with ``--device cuda`` and its
+   ``--process-id``, NCCL with a card a rank where the machine has two, else
+   two ranks sharing cuda:0 under gloo (``SMCPP_TPU_DIST_BACKEND=gloo``, each
+   with half the decode gate's budget in ``SMCPP_TPU_ESTREAM_BYTES``): (a)
+   phase 4's ``estimate`` host-local, one contig a rank (both ranks'
+   model.final.json equal byte for byte, y within rtol 1e-4 / atol 1e-6 of
+   phase 4's, K3, K6, K1, K2 launched in each rank), (b) the same with
+   ``--replicated-data`` (byte for byte (a)'s fit), (c) phase 5's
+   ``posterior`` with ``--replicated-data``, the contig's segments split
+   over the ranks (rank 0's npz against phase 5's; every posterior kernel
+   launched in each rank); each rank's wall time, peak device memory and
+   the CUDA-event times of its collectives and sharded passes
+   (``rank_child``).  Alone: ``python3 -c 'import chip_smoke as c,
+   tempfile; c.card(); c.build(); c.multirank_path(tempfile.mkdtemp())'``.
 
 K2's plain version sums each window's per-key masses in f64
 (``dsc_sweep_plain(..., sum_dtype=float64)``, ``k2_plain``): the f32
@@ -2226,6 +2241,330 @@ def frontend_path(workdir):
     log(f"phase 9 (front end): {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: several ranks (parallel/) on the card
+# ---------------------------------------------------------------------------
+
+MULTIRANK = 2  # ranks of phase 10
+MULTIRANK_TIMEOUT = 300  # seconds a rank may take before the phase kills it
+# the fits' agreement with phase 4 (tests/test_distributed.py's bound) and
+# the posterior's with phase 5
+Y_RTOL, Y_ATOL = 1e-4, 1e-6
+GAMMA_RTOL, GAMMA_ATOL = 1e-4, 1e-3
+MAP_SHARE = 0.999  # of the rows: equal MAP states, quantiles within Q_RTOL
+Q_RTOL = 1e-3
+
+# the functions a rank times with CUDA events (synchronised around each
+# call): the collectives of parallel/mesh.py, the sharded passes, and inside
+# them the kernels' entry points
+_RANK_HOOKS = (
+    ("mesh", ("gather_rows", "reduce_sum")),
+    ("wk", ("estep_direct", "decode_gammas_windows", "viterbi_windows",
+            "segment_operators", "contig_boundaries", "stats_pass",
+            "rows_from_windows", "viterbi_segment_ops",
+            "viterbi_boundary_states", "viterbi_segment_paths")),
+)
+
+
+def rank_child():
+    """One rank of phase 10, run as ``python3 -c 'import chip_smoke as c;
+    c.rank_child()' SPEC.json``: the CLI entry point on SPEC's argv (which
+    joins the group), with every launch count set to 0 just before it and
+    the functions of _RANK_HOOKS timed; writes its wall time, peak device
+    memory, launches and timings to SPEC's ``out``."""
+    import torch
+
+    from smcpp_tpu_torch.commands import main as cli
+    from smcpp_tpu_torch.ops import window_kernel as wk
+    from smcpp_tpu_torch.parallel import mesh as mm
+
+    with open(sys.argv[1]) as f:
+        spec = json.load(f)
+    times, stack = {}, []
+
+    def hook(mod, name):
+        fn = getattr(mod, name)
+
+        def timed(*a, **k):
+            x = a[1] if name in ("gather_rows", "reduce_sum") else None
+            label = "/".join(stack + [name]) + (
+                "" if x is None else f"{tuple(x.shape)} {str(x.dtype)[6:]}")
+            stack.append(name)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            try:
+                out = fn(*a, **k)
+            finally:
+                stack.pop()
+            stop.record()
+            torch.cuda.synchronize()
+            n, ms = times.get(label, (0, 0.0))
+            times[label] = (n + 1, ms + start.elapsed_time(stop))
+            return out
+
+        setattr(mod, name, timed)
+
+    for mod, names in _RANK_HOOKS:
+        for name in names:
+            hook({"mesh": mm, "wk": wk}[mod], name)
+    for k in wk.KERNELS:
+        k.launches = 0
+    # no CUDA call before the CLI picks this rank's card: a fresh process's
+    # peak counter starts at 0
+    t0 = time.perf_counter()
+    cli.main(spec["argv"])
+    torch.cuda.synchronize()
+    with open(spec["out"], "w") as f:
+        json.dump({"wall": time.perf_counter() - t0,
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "launches": {k.name: k.launches for k in wk.KERNELS},
+                   "times": times}, f)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multirank_env(ranks):
+    """(environment, description) of ``ranks`` ranks: NCCL with a card a rank
+    where the machine has that many cards; else the ranks share cuda:0
+    under gloo (NCCL refuses two ranks on one card), each with the decode
+    gate's share of the card (70% of it over the ranks) as its stream
+    budget."""
+    import torch
+
+    n = torch.cuda.device_count()
+    env = {}
+    if n >= ranks:
+        return env, f"NCCL, {ranks} ranks on {ranks} cards"
+    total = torch.cuda.get_device_properties(0).total_memory
+    env.update(SMCPP_TPU_DIST_BACKEND="gloo",
+               SMCPP_TPU_ESTREAM_BYTES=str(0.70 * total / ranks))
+    return env, (f"gloo, {ranks} ranks sharing cuda:0 (one card), stream "
+                 f"budget {0.70 * total / ranks / 1e9:.1f} GB a rank")
+
+
+def run_ranks(label, workdir, argv, env, ranks):
+    """``argv(rank)`` through the CLI on ``ranks`` child processes joined by
+    --coordinator / --num-processes / --process-id (one process, no group,
+    at ``ranks`` 1); every rank is killed on MULTIRANK_TIMEOUT and a failed
+    rank fails the phase.  Prints each rank's wall time, peak device memory,
+    launches and timed calls; returns their records and the wall time from
+    the start to the last rank's exit."""
+    port = _free_port()
+    group = [] if ranks == 1 else ["--coordinator", f"127.0.0.1:{port}",
+                                   "--num-processes", str(ranks)]
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    for r in range(ranks):
+        out = os.path.join(workdir, f"{label}.rank{r}.json")
+        spec = os.path.join(workdir, f"{label}.spec{r}.json")
+        pid = ["--process-id", str(r)] if group else []
+        with open(spec, "w") as f:
+            json.dump({"out": out, "argv": [*argv(r), *group, *pid]}, f)
+        outs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as c; c.rank_child()", spec],
+            cwd=HERE, env={**os.environ, **env}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MULTIRANK_TIMEOUT)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label}: rank {r} exited {p.returncode}:\n"
+                                 f"{text[-6000:]}")
+    recs = []
+    for r, out in enumerate(outs):
+        with open(out) as f:
+            rec = json.load(f)
+        recs.append(rec)
+        log(f"  {label} rank {r}: {rec['wall']:.2f} s wall (CLI entry to "
+            f"exit), peak device memory {rec['peak'] / 1e9:.2f} GB, launches "
+            f"{ {k: v for k, v in rec['launches'].items() if v} }")
+        for name, (n, ms) in sorted(rec["times"].items()):
+            log(f"    {name}: {n} calls, {ms:.2f} ms in all")
+    log(f"  {label}: {wall:.1f} s from start to the last rank's exit")
+    return recs, wall
+
+
+def _launched_all(label, recs, names):
+    for r, rec in enumerate(recs):
+        short = [n for n in names if rec["launches"][n] <= 0]
+        if short:
+            raise AssertionError(f"{label}: rank {r} never launched {short}")
+
+
+def multirank_path(workdir, files=None, model_json=None, post_npz=None,
+                   ranks=MULTIRANK):
+    """Phase 10: ``estimate`` and ``posterior`` on ``ranks`` ranks through
+    the CLI (``run_ranks``), against one process.
+
+    (a) ``estimate --em-iterations 2`` host-local: each rank loads one of
+        phase 4's two 100 Mbp contigs (ranks past two none); the ranks'
+        model.final.json equal
+        byte for byte, y within Y_RTOL / Y_ATOL of phase 4's, K3, K6, K1
+        and K2 launched in each rank;
+    (b) the same with --replicated-data: byte for byte (a)'s fit where the
+        ranks are as many as the contigs (each rank sums the same segments),
+        else within Y_RTOL / Y_ATOL of phase 4's;
+    (c) ``posterior --map --intervals 0.025,0.5,0.975 --replicated-data`` at
+        M = 32 on phase 5's contig, its segments split over the ranks (rows
+        straddle the boundary): rank 0's npz against phase 5's (gammas per
+        row within GAMMA_RTOL / GAMMA_ATOL, MAP states on MAP_SHARE of the
+        rows, quantiles, sites), K3, K6, K1, K2, K2g, K4, K7 and K5 launched
+        in each rank.
+
+    Alone (``files`` None) it first makes phase 4's data and runs phase 4's
+    estimate and phase 5's posterior in this process:
+    ``python3 -c 'import chip_smoke as c, tempfile; c.card(); c.build();
+    c.multirank_path(tempfile.mkdtemp())'``."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    if files is None:
+        files, model_json, post_npz = one_process_references(workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    env, how = multirank_env(ranks)
+    log(f"phase 10 (multi-rank): {how}; "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB held by this process")
+
+    def estimate(tag, *extra):
+        recs, wall = run_ranks(tag, workdir, lambda r: [
+            "estimate", "--device", "cuda", "--em-iterations", "2", *extra,
+            "-o", os.path.join(workdir, f"{tag}{r}"), MU, *files], env, ranks)
+        fits = []
+        for r in range(ranks):
+            with open(os.path.join(workdir, f"{tag}{r}", "model.final.json"), "rb") as f:
+                fits.append(f.read())
+        if any(f != fits[0] for f in fits):
+            raise AssertionError(f"{tag}: the ranks wrote different model.final.json")
+        _launched_all(tag, recs, ("segment_ops", "boundary_scan", "asc_sweep",
+                                  "dsc_sweep"))
+        return fits[0], wall
+
+    hl, hl_wall = estimate(f"estimate-hostlocal-{ranks}")
+    with open(model_json, "rb") as f:
+        y1 = np.asarray(json.loads(f.read())["model"]["y"], float)
+    y = np.asarray(json.loads(hl)["model"]["y"], float)
+    dy = np.abs(y - y1)
+    log(f"  host-local fit: y {np.round(y, 6).tolist()}; largest |y - y(phase "
+        f"4)| {dy.max():.3g} (relative {np.max(dy / np.abs(y1)):.3g}); ranks "
+        "byte-identical")
+    if not np.allclose(y, y1, rtol=Y_RTOL, atol=Y_ATOL):
+        raise AssertionError(f"the {ranks}-rank fit {y} is not phase 4's {y1}")
+    rep, rep_wall = estimate(f"estimate-replicated-{ranks}", "--replicated-data")
+    if ranks == len(files):
+        # a contig a rank either way: each rank sums the same segments
+        if rep != hl:
+            raise AssertionError("--replicated-data's fit differs from host-local's")
+        log("  --replicated-data fit: byte-identical to host-local's")
+    else:
+        # the replicated blocks cut the contigs elsewhere: the sums differ in
+        # order only
+        yr = np.asarray(json.loads(rep)["model"]["y"], float)
+        log(f"  --replicated-data fit: largest |y - y(phase 4)| "
+            f"{np.abs(yr - y1).max():.3g}")
+        if not np.allclose(yr, y1, rtol=Y_RTOL, atol=Y_ATOL):
+            raise AssertionError(f"the replicated fit {yr} is not phase 4's {y1}")
+
+    out = os.path.join(workdir, f"post-{ranks}.npz")
+    recs, post_wall = run_ranks(f"posterior-{ranks}", workdir, lambda r: [
+        *POSTERIOR, "--replicated-data", model_json, out, files[0]], env, ranks)
+    _launched_all("posterior", recs, ("segment_ops", "boundary_scan", "asc_sweep",
+                                      "dsc_sweep", "dsc_sweep_gamma", "viterbi_ops",
+                                      "viterbi_boundary", "viterbi_paths"))
+    z, ref = np.load(out), np.load(post_npz)
+    d = files[0]
+    if not np.array_equal(z[d + "_sites"], ref[d + "_sites"]):
+        raise AssertionError("posterior: the sites differ from phase 5's")
+    g, g1 = z[d], ref[d]
+    off = np.abs(g - g1) > GAMMA_ATOL + GAMMA_RTOL * np.abs(g1)
+    share = float(np.mean(z[d + "_map"] == ref[d + "_map"]))
+    q, q1 = z[d + "_quantiles"], ref[d + "_quantiles"]
+    dq = np.abs(q - q1)
+    q_share = float(np.mean(np.all(dq <= Q_RTOL * np.abs(q1), axis=0)))
+    log(f"  posterior against phase 5: gammas differ by at most "
+        f"{np.abs(g - g1).max():.3g} ({int(off.sum())} entries past rtol "
+        f"{GAMMA_RTOL} / atol {GAMMA_ATOL}); MAP states equal on {share:.6f} "
+        f"of {g.shape[1]} rows; quantiles within rtol {Q_RTOL} on {q_share:.6f} "
+        f"of the rows (largest difference {dq.max():.3g})")
+    if off.any() or share < MAP_SHARE or q_share < MAP_SHARE:
+        raise AssertionError("the multi-rank posterior is not phase 5's")
+    log(f"phase 10 (multi-rank, {how}): {time.perf_counter() - t_phase:.1f} s; "
+        f"estimate host-local {hl_wall:.1f} s, replicated {rep_wall:.1f} s, "
+        f"posterior {post_wall:.1f} s")
+    return recs
+
+
+MU = "1.25e-8"
+POSTERIOR = ["posterior", "--device", "cuda", "--map", "--intervals",
+             "0.025,0.5,0.975"]
+
+
+def one_process_references(workdir):
+    """Phase 4's data, estimate and phase 5's posterior in this process, for
+    phase 10 alone: returns (files, model.final.json, posterior npz)."""
+    from smcpp_tpu_torch.commands import main as cli
+
+    files = [simulate(workdir, f"contig{i}", 100_000_000, SEED + i)
+             for i in range(2)]
+    cli.main(["estimate", "--device", "cuda", "--em-iterations", "2", "-o",
+              os.path.join(workdir, "out"), MU, *files])
+    model_json = os.path.join(workdir, "out", "model.final.json")
+    post_npz = os.path.join(workdir, "post.npz")
+    cli.main([*POSTERIOR, model_json, post_npz, files[0]])
+    return files, model_json, post_npz
+
+
+def _pass_ms(rec, name):
+    "Milliseconds a rank spent in the timed calls named ``name`` (any path)."
+    return sum(ms for label, (n, ms) in rec["times"].items()
+               if label.split("/")[-1].split("(")[0] == name)
+
+
+def scaling(workdir, rank_counts=(2, 4)):
+    """C5 scaling on a machine with several cards: phase 10's posterior (and
+    its fits) on 1 card (one process through the same instrumented child)
+    and on each of ``rank_counts`` ranks, NCCL with a card a rank where the
+    machine has the cards.  Prints, per rank count, the posterior's wall
+    time from start to the last exit, and the slowest rank's time in the
+    decode's and the Viterbi's sharded passes, K3, K4 and the collectives.
+    ``python3 -c 'import chip_smoke as c, tempfile; c.card(); c.build();
+    c.scaling(tempfile.mkdtemp())'``."""
+    files, model_json, post_npz = one_process_references(workdir)
+    rows = {1: run_ranks("posterior-1", workdir, lambda r: [
+        *POSTERIOR, model_json, os.path.join(workdir, "post-1.npz"), files[0]],
+        {}, 1)[0]}
+    for n in rank_counts:
+        rows[n] = multirank_path(os.path.join(workdir, f"r{n}"), files,
+                                 model_json, post_npz, ranks=n)
+    log("C5 scaling of the posterior (slowest rank, ms): ranks | decode | "
+        "viterbi | K3 (both passes) | K4 | gather_rows | reduce_sum")
+    for n, recs in sorted(rows.items()):
+        cols = [max(_pass_ms(r, name) for r in recs) for name in (
+            "decode_gammas_windows", "viterbi_windows", "segment_operators", "viterbi_segment_ops", "gather_rows",
+            "reduce_sum")]
+        log(f"  {n} | " + " | ".join(f"{c:.2f}" for c in cols))
+
+
 def estep_breakdown(label, pi, T, E, keys, valid, soc, precision="default"):
     """Milliseconds of each phase of estep_direct (CUDA events around each
     call, after one warm-up run)."""
@@ -2328,10 +2667,12 @@ def main():
         post_launches, post_records = posterior_path(workdir, model_json, files[0])
         c3_throughput()
         chr1_posterior(workdir, model_json)
-    with tempfile.TemporaryDirectory() as workdir:
-        twopop_path(workdir)
-    with tempfile.TemporaryDirectory() as workdir:
-        frontend_path(workdir)
+        with tempfile.TemporaryDirectory() as w2:
+            twopop_path(w2)
+        with tempfile.TemporaryDirectory() as w2:
+            frontend_path(w2)
+        multirank_path(os.path.join(workdir, "multirank"), files, model_json,
+                       os.path.join(workdir, "post.npz"))
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     # K1-K3 and K6 from the estimate path, K2g, K4, K5 and K7 from the

@@ -46,14 +46,41 @@ class Command:
                  "automatically if the likelihood ever decreases; 'highest' "
                  "= f32 carries)",
         )
+        dist = parser.add_argument_group(
+            "multi-process execution (launch one process per device, on each "
+            "host; or launch with torchrun, whose environment needs none of "
+            "these flags)"
+        )
+        dist.add_argument(
+            "--coordinator", default=None, metavar="HOST:PORT",
+            help="torch.distributed rendezvous address (process 0's host)",
+        )
+        dist.add_argument(
+            "--num-processes", type=check_positive, default=None,
+            metavar="N", help="total number of processes in the job",
+        )
+        dist.add_argument(
+            "--process-id", type=int, default=None, metavar="I",
+            help="this process's rank in [0, N)",
+        )
+        dist.add_argument(
+            "--replicated-data", action="store_true",
+            help="load the FULL dataset on every process instead of the "
+                 "default host-local ingestion (each process loads and "
+                 "filters only its own contiguous shard of the input "
+                 "files)",
+        )
 
     def main(self, args):
+        from ..parallel import distributed
+
         np.random.seed(args.seed)
         level = [logging.INFO, logging.DEBUG][min(args.verbose, 1)]
         logging.basicConfig(
             level=level,
             format="%(asctime)s %(name)s %(levelname)s %(message)s",
         )
+        distributed.maybe_initialize_from_args(args)
 
 
 class EstimationCommand(Command):

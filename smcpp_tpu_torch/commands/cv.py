@@ -4,7 +4,12 @@ The contigs are split into ``--folds`` folds; for each fold and each
 regularization penalty of the sweep a model is fitted on the other folds
 and scored by the held-out fold's log-likelihood.  A fold marks itself done
 (``fold{i}/.done``), so a second run resumes without refitting it; the
-mean of the folds' best models is written to ``model.final.json``."""
+mean of the folds' best models is written to ``model.final.json``.
+
+Under a process group ``cv`` stays on the replicated driver: its folds are
+contig subsets chosen after loading, which host-local file shards do not
+map onto, so every process loads the full dataset (the E-step still shards
+over the group)."""
 
 import argparse
 import contextlib
@@ -52,6 +57,7 @@ class Cv(command.EstimationCommand, command.ConsoleCommand):
 
     def main(self, args):
         command.EstimationCommand.main(self, args)
+        args.replicated_data = True
         L = len(args.data)
         if not (2 <= args.folds <= L):
             sys.exit("--folds should be between 2 and the number of contigs")

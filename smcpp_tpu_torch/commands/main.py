@@ -6,6 +6,8 @@ The port has every subcommand of the JAX package: ``vcf2smc``, ``estimate``,
 
 import argparse
 
+from ..parallel import distributed
+
 
 def main(argv=None):
     from . import (  # noqa: F401
@@ -22,7 +24,11 @@ def main(argv=None):
         p = subparsers.add_parser(name, help=(cls.__doc__ or "").strip())
         cmds[name] = cls(p)
     args = parser.parse_args(argv)
-    return cmds[args.command].main(args)
+    out = cmds[args.command].main(args)
+    # a multi-process job (parallel/distributed.py) leaves its group
+    # together; a single process has none
+    distributed.shutdown(barrier=True)
+    return out
 
 
 if __name__ == "__main__":

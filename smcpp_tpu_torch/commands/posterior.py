@@ -1,10 +1,15 @@
 """smc++ posterior: decode the posterior TMRCA distribution along contigs.
 
-Port of smcpp_tpu/commands/posterior.py for one and two populations, on one
-device (``--device``).  Multi-host ingestion (ROADMAP A8) is not ported."""
+Port of smcpp_tpu/commands/posterior.py for one and two populations, on
+``--device``.  Under a process group the decode shards over the ranks: by
+default each rank loads only its own contiguous shard of the files and
+writes its rows to ``<output>.procI.npz`` (I its rank; the heatmap, too);
+with ``--replicated-data`` every rank loads every file and rank 0 writes
+``<output>``."""
 
 import json
 import logging
+import os
 import sys
 
 import numpy as np
@@ -13,6 +18,7 @@ from ..data import format as fmt
 from ..inference import estimation
 from ..inference.manager import make_manager
 from ..models import model_from_dict
+from ..parallel import distributed, hostlocal
 from . import command
 
 logger = logging.getLogger(__name__)
@@ -78,8 +84,26 @@ class Posterior(command.Command, command.ConsoleCommand):
         m = model_from_dict(j["model"])
         files = fmt.files_from_command_line_args(args.data)
         data_keys = list(args.data)
+        mesh = distributed.current()
+        local_data = hostlocal.active(mesh) and not args.replicated_data
+        out_path, hdr = args.output, None
+        if local_data:
+            all_files = files
+            headers, files = hostlocal.shard_ingestion(all_files, mesh)
+            if len({(p, tuple(n), tuple(a)) for p, n, a in headers}) > 1:
+                sys.exit("All data sets must share population / sample size")
+            hdr = headers[0]
+            data_keys = files  # npz keys: the expanded file paths
+            base, ext = os.path.splitext(args.output)
+            # the .npz extension last (np.savez appends it otherwise)
+            out_path = f"{base}.proc{mesh.rank}{ext or '.npz'}"
+            logger.info(
+                "host-local posterior: process %d/%d decodes %d of %d files "
+                "-> %s", mesh.rank, mesh.size, len(files), len(all_files),
+                out_path,
+            )
         contigs = fmt.load_data(files)
-        if len({c.key for c in contigs}) > 1:
+        if not local_data and len({c.key for c in contigs}) > 1:
             sys.exit("All data sets must share population / sample size")
         hidden_states = estimation.balance_hidden_states(
             m.distinguished_model, args.M + 1
@@ -98,10 +122,15 @@ class Posterior(command.Command, command.ConsoleCommand):
             from ..data.filters import thin_data
 
             all_obs = [thin_data(o, args.thinning) for o in all_obs]
-        c = contigs[0]
-        im = make_manager(c.n, c.a, all_obs, hidden_states, tuple(c.pid),
+        if hdr is not None:
+            # the population structure from the headers: a rank's shard may
+            # be empty, yet every rank builds the same manager
+            pid, n, a = hdr
+        else:
+            pid, n, a = contigs[0].pid, contigs[0].n, contigs[0].a
+        im = make_manager(n, a, all_obs, hidden_states, tuple(pid),
                           args.polarization_error, device=args.device,
-                          precision=args.precision)
+                          precision=args.precision, local_data=local_data)
         im.set_model(m)
         im.theta = j["theta"]
         im.rho = j["rho"]
@@ -132,8 +161,13 @@ class Posterior(command.Command, command.ConsoleCommand):
                 kwargs[path + "_quantiles"] = posterior_quantiles(
                     g, hidden_states, args.intervals
                 )
-        np.savez_compressed(args.output, hidden_states=hidden_states, **kwargs)
+        if not local_data and mesh is not None and mesh.rank != 0:
+            return im  # replicated: rank 0 writes what every rank holds
+        np.savez_compressed(out_path, hidden_states=hidden_states, **kwargs)
         if args.heatmap and gammas:
+            if local_data:
+                base, ext = os.path.splitext(args.heatmap)
+                args.heatmap = f"{base}.proc{mesh.rank}{ext}"
             self._heatmap(args, all_obs[0], gammas[0], hidden_states)
         return im
 

@@ -426,7 +426,13 @@ class Chunk(Filter):
 
 @dataclass
 class CountMutations(Filter):
+    """Windowed mutation counts for the empirical-TMRCA hidden states.
+    ``mesh`` (host-local ingestion, parallel/hostlocal.py): every rank's
+    counts gathered in rank (= file) order, the order a single process
+    sees; the mixture fit downstream is order-sensitive."""
+
     w: int = 100
+    mesh: object = None
 
     def run(self, contigs):
         mc = []
@@ -436,6 +442,10 @@ class CountMutations(Filter):
                 if nm > 0.5 * self.w:
                     mc.append(m * self.w / nm)
         self.counts = np.array(mc, dtype=np.float64)
+        if self.mesh is not None:
+            from ..parallel import hostlocal
+
+            self.counts = hostlocal.allgather_concat(self.counts, self.mesh, ncols=1)
         return contigs
 
 
@@ -464,8 +474,19 @@ class BreakLongSpans(Filter):
         ]
 
 
+def _global_count(n, mesh):
+    "Surviving contigs over every rank under host-local ingestion."
+    if mesh is None:
+        return n
+    from ..parallel import hostlocal
+
+    return int(hostlocal.allreduce_sum(np.int64(n), mesh))
+
+
 @dataclass
 class DropUninformativeContigs(Filter):
+    mesh: object = None
+
     def run(self, contigs):
         def n_var(c):
             d = c.data
@@ -474,7 +495,7 @@ class DropUninformativeContigs(Filter):
             ).sum()
 
         ret = [c for c in contigs if n_var(c) > 0]
-        if len(ret) == 0:
+        if _global_count(len(ret), self.mesh) == 0:
             raise RuntimeError("No contigs have mutation data.")
         return ret
 
@@ -482,10 +503,11 @@ class DropUninformativeContigs(Filter):
 @dataclass
 class DropSmallContigs(Filter):
     cutoff: int = 100000
+    mesh: object = None
 
     def run(self, contigs):
         ret = [c for c in contigs if len(c) > self.cutoff]
-        if len(ret) == 0:
+        if _global_count(len(ret), self.mesh) == 0:
             raise RuntimeError("All contigs are too small.")
         return ret
 
@@ -493,6 +515,8 @@ class DropSmallContigs(Filter):
 @dataclass
 class Watterson(Filter):
     "Watterson's theta estimator (data_filter.py:301-322)."
+
+    mesh: object = None
 
     def run(self, contigs):
         num = denom = 0.0
@@ -510,6 +534,12 @@ class Watterson(Filter):
             denom += (
                 spans[nz] * (np.log(ss) + 0.5 / ss + 0.57721)
             ).sum()
+        if self.mesh is not None:
+            from ..parallel import hostlocal
+
+            num, denom = hostlocal.allreduce_sum(
+                np.array([num, denom], np.float64), self.mesh
+            )
         self.theta_hat = num / denom
         logger.debug("watterson: %f", self.theta_hat)
         return contigs

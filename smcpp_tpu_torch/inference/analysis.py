@@ -1,10 +1,19 @@
 """Analysis drivers: data pipeline + model + inference managers + EM.
 
-Port of ``BaseAnalysis`` and ``Analysis`` of smcpp_tpu/inference/analysis.py
-(single-process; the multi-host ingestion branch is not ported).  Mirrors
-SMC++ smcpp/analysis/{base,analysis}.py, including the two-stage
+Port of ``BaseAnalysis`` and ``Analysis`` of smcpp_tpu/inference/analysis.py.
+Mirrors SMC++ smcpp/analysis/{base,analysis}.py, including the two-stage
 initialization: a constant warm start with one hidden interval, then the
 spline model with empirical-TMRCA hidden states.
+
+Under a process group (parallel/distributed.py) every rank runs this driver;
+the managers shard the E-step over the group and reduce its statistics, so
+every rank fits the same model.  After each M-step rank 0's parameters are
+broadcast (``broadcast_parameters``): the M-step runs f64 autograd on each
+rank's device, and two ranks whose optimizer paths parted by one ulp would
+otherwise feed two models to the next E-step.  By default each rank loads
+only its own shard of the files (host-local ingestion,
+parallel/hostlocal.py); ``--replicated-data`` loads every file on every
+rank.
 """
 
 import json
@@ -15,7 +24,10 @@ import torch
 
 from .. import defaults
 from ..data import filters as df
+from ..data import format as fmt
 from ..models import SMCModel
+from ..parallel import distributed, hostlocal
+from ..parallel import mesh as mesh_mod
 from . import estimation
 from .manager import make_manager, resolve_device
 from .optimizer import SMCPPOptimizer
@@ -27,6 +39,7 @@ class BaseAnalysis:
     def __init__(self, files, args):
         self._args = args
         self._device = resolve_device(getattr(args, "device", "cuda"))
+        self._mesh = distributed.current()
         self._N0 = 0.5e-4 / args.mu  # so that theta == 1e-4 (base.py:26-28)
         self._theta = 2.0 * self._N0 * args.mu
         if getattr(args, "r", None) is not None:
@@ -38,20 +51,41 @@ class BaseAnalysis:
         if getattr(args, "unfold", False):
             args.polarization_error = 0.0
 
+        self._hostlocal = hostlocal.active(self._mesh) and not getattr(
+            args, "replicated_data", False
+        )
+        self._headers = None
+        if self._hostlocal:
+            # the one-line headers of ALL files (population structure, sample
+            # sizes), the data of this rank's contiguous shard only
+            self._headers, files = hostlocal.shard_ingestion(
+                fmt.files_from_command_line_args(files), self._mesh
+            )
+        local = self._mesh if self._hostlocal else None
+
         pipe = self._pipeline = df.DataPipeline(files)
         pipe.add_filter(load_data=df.LoadData(cores=getattr(args, "cores", None)))
         pipe.add_filter(df.RecodeNonseg(cutoff=getattr(args, "nonseg_cutoff", None)))
         pipe.add_filter(df.Compress())
         pipe.add_filter(df.BreakLongSpans(cutoff=100000))
-        pipe.add_filter(df.DropSmallContigs(100000))
-        pipe.add_filter(watterson=df.Watterson())
+        pipe.add_filter(df.DropSmallContigs(100000, mesh=local))
+        pipe.add_filter(watterson=df.Watterson(mesh=local))
         pipe.add_filter(
-            mutation_counts=df.CountMutations(w=int(2e-3 * self._N0 / self._rho))
+            mutation_counts=df.CountMutations(
+                w=int(2e-3 * self._N0 / self._rho), mesh=local
+            )
         )
 
     # ------------------------------------------------------------------
     @property
     def populations(self):
+        if self._headers is not None:
+            # from the headers, in first-appearance (global file) order: the
+            # same on every rank, whatever its shard holds
+            pops = []
+            for pid, _n, _a in self._headers:
+                pops += [x for x in pid if x not in pops]
+            return tuple(pops)
         return self._pipeline["load_data"].populations
 
     @property
@@ -70,6 +104,15 @@ class BaseAnalysis:
         d = {}
         max_n = {}
         a_by_pid = {}
+        # under host-local ingestion the pids, sample-size maxima and
+        # distinguished layouts come from every file's header first: a rank's
+        # shard may miss a pid, yet every rank must build the same managers
+        # in the same order (their set-up collectives must line up)
+        for pid, n, a in self._headers or ():
+            d.setdefault(pid, [])
+            cur = max_n.setdefault(pid, np.zeros(len(n), dtype=int))
+            max_n[pid] = np.maximum(cur, n)
+            a_by_pid.setdefault(pid, set()).add(tuple(a))
         for c in self.contigs:
             d.setdefault(c.pid, []).append(c)
             cur = max_n.setdefault(c.pid, np.zeros(len(c.n), dtype=int))
@@ -88,7 +131,7 @@ class BaseAnalysis:
                 (a,) = a_by_pid[pid]
             im = make_manager(max_n[pid], a, [c.data for c in d[pid]], hs, pid,
                               polarization_error, device=self._device,
-                              precision=prec)
+                              precision=prec, local_data=self._hostlocal)
             im.set_model(self._model)
             im.theta = self._theta
             im.rho = self._rho
@@ -209,6 +252,22 @@ class BaseAnalysis:
     def run(self, niter=None):
         self._optimizer.run(niter or self._niter)
 
+    def _broadcast(self, x):
+        "Rank 0's values of the float array ``x`` (x itself alone)."
+        if self._mesh is None:
+            return x
+        t = torch.as_tensor(np.asarray(x, np.float64), device=self._mesh.device)
+        return mesh_mod.broadcast(self._mesh, t).cpu().numpy()
+
+    def broadcast_parameters(self):
+        """Every rank takes rank 0's fitted parameters (y and rho), after each
+        M-step."""
+        if self._mesh is None:
+            return
+        v = self._broadcast(np.r_[self._model.y, self._rho])
+        self._model.y[:] = v[:-1]
+        self.rho = float(v[-1])
+
     def dump(self, filename):
         d = {"theta": self._theta, "rho": self._rho, "alpha": self._alpha}
         d["model"] = self.model.to_dict()
@@ -257,7 +316,8 @@ class Analysis(BaseAnalysis):
         pipe.add_filter(df.RecodeMonomorphic())
         pipe.add_filter(df.Compress())
         pipe.add_filter(df.Validate())
-        pipe.add_filter(df.DropUninformativeContigs())
+        pipe.add_filter(df.DropUninformativeContigs(
+            mesh=self._mesh if self._hostlocal else None))
         pipe.add_filter(df.Summarize())
         try:
             self._empirical_tmrca(2 * args.knots)
@@ -267,6 +327,9 @@ class Analysis(BaseAnalysis):
             logger.warning("Empirical TMRCA failed (%s); using balanced states", e)
             hs = estimation.balance_hidden_states(m, 2 * args.knots)
             self.hidden_state_path = "balanced"
+        # every rank decodes on rank 0's states (the mixture fit runs on
+        # each rank)
+        hs = self._broadcast(hs)
         logger.info(
             "stage-2 hidden states: %s (M = %d)", self.hidden_state_path,
             len(hs) - 1,

@@ -13,7 +13,7 @@ decode and the MAP paths; they differ in the emission index and in how
   for dQ/dy and a leading batch dimension for ``Q_batch``, on the same
   device.  The E-statistics are constants in Q (src/hmm.cpp:155-193);
 * the posterior decode (``save_gamma`` / ``gammas``) and the MAP paths
-  (``map_paths``) through the window kernels, single device;
+  (``map_paths``) through the window kernels;
 * the span kernel (ops/hmm.py) where the cost model picks it, and the
   row-level decode and Viterbi past the window gates and at M = 1;
 * two populations: the joint CSFS (ops/jcsfs.py) on the host in float64,
@@ -22,6 +22,14 @@ decode and the MAP paths; they differ in the emission index and in how
 
 Everything runs on the ``device`` the manager was built with.  Asking for
 CUDA where there is none raises; nothing falls back to the CPU.
+
+Under a process group (parallel/distributed.py; ``mesh``) each rank holds
+its block of the segment rows (window kernel) or of the contigs (span
+kernel) on its own device, and the E-step, the decode and the MAP paths run
+sharded (parallel/mesh.py), their results the same on every rank.  With
+``local_data`` (host-local ingestion, parallel/hostlocal.py) ``data_list``
+holds only this rank's contigs: the aggregates are summed over the ranks,
+the window kernel always runs, and the decodes return this rank's rows.
 """
 
 import json
@@ -39,6 +47,8 @@ from ..ops import grid as grid_mod
 from ..ops import hmm
 from ..ops import ratefunc, transition
 from ..ops import window_kernel as wk
+from ..parallel import distributed, hostlocal
+from ..parallel import mesh as mesh_mod
 
 logger = logging.getLogger(__name__)
 
@@ -131,11 +141,22 @@ def pack_observations(data_list, key_id, chunk, max_span=None):
     return spans, keys, reps_l
 
 
-def _all_keys(data_list):
-    "The distinct observation keys (every column but the span) of the data."
-    return np.unique(
-        np.concatenate([d[:, 1:] for d in data_list], axis=0), axis=0
-    )
+def _all_keys(data_list, mesh=None, ncols=None):
+    """The distinct observation keys (every column but the span) of the
+    data; with a host-local ``mesh``, of every rank's data (``ncols`` pins
+    the key width for a rank with no contigs)."""
+    if mesh is None:
+        return np.unique(
+            np.concatenate([d[:, 1:] for d in data_list], axis=0), axis=0
+        )
+    lk = (np.concatenate([d[:, 1:] for d in data_list], axis=0) if data_list
+          else np.zeros((0, ncols), np.int64))
+    return hostlocal.global_unique_rows(lk.astype(np.int64), mesh, ncols=ncols)
+
+
+def _job_mesh(mesh):
+    "The manager's mesh: ``mesh`` if given, else the live process group's."
+    return mesh if mesh is not None else distributed.current()
 
 
 def _hmm_tensors(em_idx, a, grid, rho, branch_lengths, theta, alpha):
@@ -162,11 +183,20 @@ class _InferenceManager:
     supplies the emission index ``em_idx`` and ``tensors()``."""
 
     def __init__(self, em_idx, data_list, hidden_states, pid, chunk, device,
-                 precision):
+                 precision, mesh=None, local_data=False):
         self.pid = pid
         self._precision = precision
         self.hidden_states = np.asarray(hidden_states, dtype=np.float64)
+        self._mesh = mesh
+        self._local_data = local_data
         self._device = resolve_device(device)
+        if mesh is not None:
+            if mesh.device.type != self._device.type:
+                raise ValueError(
+                    f"the manager's device {self._device} is not the rank's "
+                    f"device {mesh.device}"
+                )
+            self._device = mesh.device
         self.em_idx = em_idx
         spans, keys, self._row_reps = pack_observations(
             data_list, self.em_idx.key_id(), chunk
@@ -181,6 +211,14 @@ class _InferenceManager:
             minlength=self.em_idx.n_keys,
         ).astype(np.float64)
         self._n_contigs = spans.shape[0]
+        if local_data:
+            # the totals the M = 1 E-step, the cost model and the M-step use
+            max_span = int(hostlocal.allreduce_max(np.int64(max_span), mesh))
+            self._total_bases = float(
+                hostlocal.allreduce_sum(np.float64(self._total_bases), mesh))
+            self._key_counts = hostlocal.allreduce_sum(self._key_counts, mesh)
+            self._n_contigs = int(
+                hostlocal.allreduce_sum(np.int64(self._n_contigs), mesh))
         self._nbits = max(1, max_span.bit_length())
         self._init_kernel_choice(data_list, spans)
 
@@ -209,30 +247,51 @@ class _InferenceManager:
         n_rows = int((spans > 0).sum())
         window_cost = self._total_bases
         span_cost = n_rows * 2 * self._nbits * 30
-        self._use_windows = window_cost < span_cost
+        # host-local shards always run the window kernel, as the reference's
+        # do: the span kernel's (C, L) rows have no host-local placement
+        self._use_windows = self._local_data or window_cost < span_cost
         logger.debug(
             "IM(pid=%s): %d contigs, padded L=%d, %d keys, nbits=%d, "
-            "kernel=%s, device=%s",
+            "kernel=%s, device=%s, ranks=%d",
             self.pid, spans.shape[0], spans.shape[1], self.em_idx.n_keys,
             self._nbits, "window" if self._use_windows else "span",
-            self._device,
+            self._device, 1 if self._mesh is None else self._mesh.size,
         )
         if not self._use_windows:
             self._rows()
             return
-        wkeys, wvalid, soc = wk.pack_windows(data_list, self.em_idx.key_id())
+        # row spans per contig, for the window decode's row ends
+        self._wrow_spans = [d[:, 0].astype(np.int64) for d in data_list]
+        self._wrow_offset = 0
+        self._wlocal = None
+        if self._local_data:
+            wkeys, wvalid, soc, self._wlocal = hostlocal.pack_windows_local(
+                data_list, self.em_idx.key_id(), self._mesh
+            )
+        else:
+            wkeys, wvalid, soc = wk.pack_windows(data_list, self.em_idx.key_id())
+            if self._mesh is not None:
+                wkeys, wvalid = (
+                    mesh_mod.local_block(self._mesh, x)
+                    for x in mesh_mod.pad_segments(wkeys, wvalid, self._mesh.size)
+                )
         wk.check_key_range(wkeys, self.em_idx.n_keys)
+        # under a mesh: this rank's block of the segment rows
         self._wkeys = torch.as_tensor(wkeys, device=self._device)
         self._wvalid = torch.as_tensor(wvalid, device=self._device)
         self._soc = soc
-        # row spans per contig, for the window decode's row ends
-        self._wrow_spans = [d[:, 0].astype(np.int64) for d in data_list]
 
     def _rows(self):
-        "The packed rows (spans, keys) as (C, L) int32 tensors on the device."
+        """The packed rows (spans, keys) as (C, L) int32 tensors on the device;
+        under a replicated mesh, this rank's block of the contigs (padded with
+        span-0 contigs to a multiple of the ranks)."""
         if self._rows_d is None:
+            rows = (self._spans, self._keys)
+            if self._mesh is not None and not self._local_data:
+                rows = (mesh_mod.local_block(self._mesh, mesh_mod.pad_rows(x, self._mesh.size))
+                        for x in rows)
             self._rows_d = tuple(torch.as_tensor(x, device=self._device)
-                                 for x in (self._spans, self._keys))
+                                 for x in rows)
         return self._rows_d
 
     def _row_budget(self):
@@ -257,7 +316,8 @@ class _InferenceManager:
         return frac * float(total)
 
     def _window_stream_bytes(self, bytes_per_state):
-        "Bytes of a (windows x M) stream at bytes_per_state per element."
+        """Bytes of a (windows x M) stream at bytes_per_state per element, on
+        this rank's device (its block of the segments under a mesh)."""
         S, L = self._wkeys.shape
         return S * L * (len(self.hidden_states) - 1) * bytes_per_state
 
@@ -348,15 +408,18 @@ class _InferenceManager:
             return ll
         pi, T, E = self.tensors()
         pi_d, T_d, E_d = (x.float().contiguous() for x in (pi, T, E))
+        mesh = self._mesh
         if self._use_windows:
             ll, gamma0, xisum, gamma_sums = wk.estep_direct(
                 pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
-                precision=self.precision,
+                precision=self.precision, mesh=mesh,
             )
         else:
-            ll, gamma0, xisum, gamma_sums = hmm.estep(
-                pi_d, T_d, E_d, *self._rows(), self._nbits, self._chunk,
-                self._row_budget(),
+            # this rank's contigs; the statistics summed over the ranks in f64
+            ll, gamma0, xisum, gamma_sums = (
+                mesh_mod.reduce_sum(mesh, x.detach().to(torch.float64))
+                for x in hmm.estep(pi_d, T_d, E_d, *self._rows(), self._nbits,
+                                   self._chunk, self._row_budget())
             )
         self._ll = float(ll)
         self._stats = tuple(
@@ -407,17 +470,24 @@ class _InferenceManager:
         return out
 
     def _row_ends(self):
-        "Flat segment-major index of every row's last window, on the device."
+        """Flat segment-major index of every row's last window, on the device
+        (every rank's rows under host-local ingestion, numbered in rank
+        order; ``_wrow_offset`` is this rank's first)."""
         if getattr(self, "_wrow_ends", None) is None:
-            ends = wk.pack_window_row_ends(
-                self._wrow_spans, self._wkeys.shape[1], self._soc
-            )
+            if self._local_data:
+                _, self._wrow_offset, ends = hostlocal.decode_row_placement(
+                    self._wrow_spans, self._wlocal, self._mesh
+                )
+            else:
+                ends = wk.pack_window_row_ends(
+                    self._wrow_spans, self._wkeys.shape[1], self._soc
+                )
             self._wrow_ends = torch.as_tensor(ends, device=self._device)
         return self._wrow_ends
 
     def _split_rows(self, rows):
-        "Cut a (n_rows, ...) host array into one array per contig."
-        out, off = [], 0
+        "Cut this rank's rows of a (n_rows, ...) host array into one per contig."
+        out, off = [], self._wrow_offset
         for spans in self._wrow_spans:
             out.append(rows[off : off + len(spans)])
             off += len(spans)
@@ -430,14 +500,25 @@ class _InferenceManager:
         row-level decode (hmm.decode_gammas, manager.py:334-410), its
         sub-rows summed back to the caller's rows.  The pull is f32 (the
         reference's f16 pull is not ported)."""
+        mesh = self._mesh
         if self._use_windows and self._window_decode_fits():
             _, g = wk.decode_gammas_windows(
                 pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
-                self._row_ends(), precision=self._decode_precision(),
+                self._row_ends(), precision=self._decode_precision(), mesh=mesh,
             )
             return self._split_rows(g.cpu().numpy())
-        g = hmm.decode_gammas(pi_d, T_d, E_d, *self._rows(), self._nbits,
-                              self._chunk, self._row_budget())
+        if self._local_data:
+            raise NotImplementedError(
+                "posterior decode under host-local ingestion needs the window "
+                "gamma stream to fit the device budget "
+                "(SMCPP_TPU_ESTREAM_BYTES); raise the budget or run with "
+                "--replicated-data"
+            )
+        # this rank's contigs; every rank's rows gathered in rank order
+        g = mesh_mod.gather_rows(mesh, hmm.decode_gammas(
+            pi_d, T_d, E_d, *self._rows(), self._nbits, self._chunk,
+            self._row_budget(),
+        ))
         return self._per_input_row(g.to(torch.float32).cpu().numpy())
 
     def _window_map_paths(self, pi, T, E, block=None):
@@ -445,7 +526,7 @@ class _InferenceManager:
         ``block`` streams the phase-C backpointers per block."""
         states = wk.viterbi_windows(
             pi, T, E, self._wkeys, self._wvalid, self._soc, self._row_ends(),
-            block=block,
+            block=block, mesh=self._mesh,
         )
         return [p.astype(np.int32) for p in self._split_rows(states.cpu().numpy())]
 
@@ -473,8 +554,13 @@ class _InferenceManager:
                     "streaming per block (%d)", block,
                 )
                 return self._window_map_paths(pi32, T32, E32, block=block)
-        paths = hmm.viterbi_paths(pi, T, E, *self._rows(), self._nbits,
-                                  self._row_budget()).cpu().numpy()
+        # replicated: this rank's contigs, every rank's paths gathered;
+        # host-local: every contig is this rank's, decoded on its own
+        paths = mesh_mod.gather_rows(
+            None if self._local_data else self._mesh,
+            hmm.viterbi_paths(pi, T, E, *self._rows(), self._nbits,
+                              self._row_budget()),
+        ).cpu().numpy()
         return [paths[i, np.cumsum(reps) - 1] for i, reps in enumerate(self._row_reps)]
 
     def _check_finite(self, ll, stats, pi, T, E):
@@ -528,16 +614,20 @@ class OnePopInferenceManager(_InferenceManager):
         chunk=64,
         device="cuda",
         precision=None,
+        mesh=None,
+        local_data=False,
     ):
         self.n = int(n)
         self._grid = None
         self._joint = False
+        mesh = _job_mesh(mesh)
+        local_data = bool(local_data) and mesh is not None
         em_idx = em_mod.build_emission_index(
-            _all_keys(data_list), self.n, na=2,
-            polarization_error=polarization_error,
+            _all_keys(data_list, mesh if local_data else None, ncols=3),
+            self.n, na=2, polarization_error=polarization_error,
         )
         super().__init__(em_idx, data_list, hidden_states, pid, chunk, device,
-                         precision)
+                         precision, mesh, local_data)
 
     # -- model and the Q family --------------------------------------------
     def set_model(self, model):
@@ -695,6 +785,8 @@ class TwoPopInferenceManager(_InferenceManager):
         K=10,
         device="cuda",
         precision=None,
+        mesh=None,
+        local_data=False,
     ):
         from ..ops.jcsfs import JointCSFS
 
@@ -705,12 +797,14 @@ class TwoPopInferenceManager(_InferenceManager):
             )
         self.n1, self.n2, self.a1, self.a2 = int(n1), int(n2), int(a1), int(a2)
         self.n = (self.n1, self.n2)
+        mesh = _job_mesh(mesh)
+        local_data = bool(local_data) and mesh is not None
         em_idx = em_mod.build_emission_index_2pop(
-            _all_keys(data_list), self.n, (self.a1, self.a2),
-            polarization_error,
+            _all_keys(data_list, mesh if local_data else None, ncols=6),
+            self.n, (self.a1, self.a2), polarization_error,
         )
         super().__init__(em_idx, data_list, hidden_states, pid, chunk, device,
-                         precision)
+                         precision, mesh, local_data)
         self._jcsfs = JointCSFS(
             self.n1, self.n2, self.a1, self.a2, self.hidden_states, K=K
         )
@@ -773,15 +867,18 @@ class TwoPopInferenceManager(_InferenceManager):
 
 
 def make_manager(n, a, data_list, hidden_states, pid, polarization_error,
-                 device="cuda", precision=None):
+                 device="cuda", precision=None, local_data=False):
     """The manager for data of sample sizes ``n`` and distinguished lineages
-    ``a`` per population: one population, or two (a joint pid)."""
+    ``a`` per population: one population, or two (a joint pid).  Under a
+    process group it shards over the group; ``local_data``: ``data_list``
+    is this rank's shard (host-local ingestion)."""
     if len(n) == 1:
         return OnePopInferenceManager(
             n[0], data_list, hidden_states, pid, polarization_error,
-            device=device, precision=precision,
+            device=device, precision=precision, local_data=local_data,
         )
     return TwoPopInferenceManager(
         n[0], n[1], a[0], a[1], data_list, hidden_states, pid,
         polarization_error, device=device, precision=precision,
+        local_data=local_data,
     )

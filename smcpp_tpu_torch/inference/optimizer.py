@@ -798,6 +798,14 @@ class SMCPPOptimizer:
         self._analysis.E_step()
         return self._analysis.loglik()
 
+    def _broadcast_parameters(self):
+        """Under a process group every rank takes rank 0's fitted parameters
+        (analysis.broadcast_parameters), so that no two ranks feed two
+        models to the next E-step."""
+        sync = getattr(self._analysis, "broadcast_parameters", None)
+        if sync is not None:
+            sync()
+
     def run(self, niter):
         try:
             for i in range(niter):
@@ -822,6 +830,7 @@ class SMCPPOptimizer:
                                 x0, coords, coarse0=prefetch.get(coords[0])
                             )
                             self._analysis.model.y[coords] = res.x
+                self._broadcast_parameters()
                 if logger.isEnabledFor(logging.DEBUG):
                     logger.debug(
                         "size history after iteration %d:\n%s",
@@ -889,6 +898,7 @@ class TwoPopulationOptimizer(SMCPPOptimizer):
                 ll = self._maybe_raise_precision(self._analysis.loglik())
                 self._check_termination(ll)
                 self._optimize_param("split", (0.0, self._max_split))
+                self._broadcast_parameters()
         except EMTerminationException:
             pass
         if self._outdir:

@@ -1,7 +1,6 @@
 """Two-population split-time estimation.
 
-Port of ``SplitAnalysis`` of smcpp_tpu/inference/split.py (single process;
-the host-local ingestion is not ported).  Mirrors SMC++
+Port of ``SplitAnalysis`` of smcpp_tpu/inference/split.py.  Mirrors SMC++
 smcpp/analysis/split.py: loads the two marginal fits, builds an
 SMCTwoPopulationModel with the split at max_split / 2, and runs one EM
 iteration in which only the split time moves, by the batched search over the
@@ -22,12 +21,20 @@ logger = logging.getLogger(__name__)
 
 
 class SplitAnalysis(BaseAnalysis):
+    # Under host-local ingestion the split search runs at trivial hidden
+    # states (M = 1), whose closed-form E-step needs only the key counts
+    # summed over the ranks.
+
     def __init__(self, files, args):
         super().__init__(files, args)
         if self.npop != 2:
             raise RuntimeError("split requires two-population data")
         self._init_model(args.pop1, args.pop2)
-        if not any(c.npop == 2 for c in self.contigs):
+        if self._headers is not None:
+            has_joint = any(len(pid) == 2 for pid, _n, _a in self._headers)
+        else:
+            has_joint = any(c.npop == 2 for c in self.contigs)
+        if not has_joint:
             raise RuntimeError(
                 "Data contains no joint frequency spectrum information."
             )
@@ -72,6 +79,11 @@ class SplitAnalysis(BaseAnalysis):
     @split.setter
     def split(self, x):
         self._model.split = x
+
+    def broadcast_parameters(self):
+        "Every rank takes rank 0's split, after each M-step."
+        if self._mesh is not None:
+            self._model.split = float(self._broadcast([self._model.split])[0])
 
     def Q(self, y=None, theta=None, rho=None, alpha=None, split=None):
         if split is not None:

@@ -64,6 +64,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel import mesh as mesh_mod
 from . import _cuda
 
 RESCALE_EVERY = 8
@@ -1294,19 +1295,45 @@ def boundary_stats(pi, T, alpha_end, u_start, xo, seg_of_contig, cvalid):
     return xo, pi_stat
 
 
-def estep_direct(pi, T, E, keys, valid, seg_of_contig, precision=None):
-    """Direct Baum-Welch E-step (window_kernel.py:estep_direct).  Returns
-    (ll, pi-stat, xisum, gamma_sums): ll and the statistics in f64."""
-    precision = _precision(precision)
+def _boundaries(pi, T, E, keys, valid, seg_of_contig, precision, mesh):
+    """K3 on the segments, then K6 over every segment (all ranks' under a
+    ``mesh``, gathered in segment order, the scan replicated).  Returns
+    (ll, A_in, Q_end, cvalid, lo): the boundary vectors of this rank's
+    segments, which start at global segment ``lo``."""
     ops, logs = segment_operators(T, E, keys, valid, precision)
-    seg_has = torch.any(valid, 1)
+    has = torch.any(valid, 1).to(torch.uint8)
+    ops, logs = mesh_mod.gather_rows(mesh, ops), mesh_mod.gather_rows(mesh, logs)
+    seg_has = mesh_mod.gather_rows(mesh, has).bool()
     ll, A_in, Q_end, cvalid = contig_boundaries(
         pi, ops, logs, seg_of_contig, seg_has
     )
-    alpha_end, u_start, xo, gsum = stats_pass(
-        T, E, keys, valid, A_in.contiguous(), Q_end.contiguous(),
-        precision=precision,
+    S = keys.shape[0]
+    lo = mesh_mod.block_start(mesh, S)
+    return (ll, A_in[lo : lo + S].contiguous(), Q_end[lo : lo + S].contiguous(),
+            cvalid, lo)
+
+
+def estep_direct(pi, T, E, keys, valid, seg_of_contig, precision=None,
+                 mesh=None):
+    """Direct Baum-Welch E-step (window_kernel.py:estep_direct).  Returns
+    (ll, pi-stat, xisum, gamma_sums): ll and the statistics in f64.
+
+    Under a ``mesh`` (parallel/mesh.py; mesh.py:make_sharded_direct_estep)
+    keys and valid are this rank's block of the global segment rows and
+    seg_of_contig the global table: K3 on the block, the operators gathered,
+    K6 replicated, K1 and K2 on the block, xo and gsum summed over the ranks
+    (f64), alpha_end and u_start gathered, ``boundary_stats`` replicated;
+    every rank returns the global result."""
+    precision = _precision(precision)
+    ll, A_in, Q_end, cvalid, _ = _boundaries(
+        pi, T, E, keys, valid, seg_of_contig, precision, mesh
     )
+    alpha_end, u_start, xo, gsum = stats_pass(
+        T, E, keys, valid, A_in, Q_end, precision=precision,
+    )
+    xo, gsum = mesh_mod.reduce_sum(mesh, xo), mesh_mod.reduce_sum(mesh, gsum)
+    alpha_end = mesh_mod.gather_rows(mesh, alpha_end)
+    u_start = mesh_mod.gather_rows(mesh, u_start)
     xo, pi_stat = boundary_stats(
         pi, T, alpha_end, u_start, xo, seg_of_contig, cvalid
     )
@@ -1321,13 +1348,19 @@ def estep_direct(pi, T, E, keys, valid, seg_of_contig, precision=None):
 PREFIX_BLOCK = 1024
 
 
-def rows_from_windows(gam, row_ends):
+def rows_from_windows(gam, row_ends, base=0):
     """Per-row sums of a flat (W, M) per-window stream, as a prefix-sum
     difference at the rows' last windows (window_kernel.py:737-749): f32
     prefix sums within blocks of PREFIX_BLOCK windows, computed in place
     (``gam`` is overwritten), f64 across the block totals, gathered at
     ``row_ends`` and differenced, then clamped at 0.  Returns (n_rows, M)
-    f32."""
+    f32.
+
+    ``base`` is the flat index of the stream's first window in a longer
+    stream that ``row_ends`` index (one rank's block of segments,
+    parallel/mesh.py): the prefix sum is 0 before the block and its total
+    after it, so each row gets the part of its windows that lie in the
+    block."""
     M = gam.shape[-1]
     flat = gam.reshape(-1, M)
     B = PREFIX_BLOCK
@@ -1337,13 +1370,16 @@ def rows_from_windows(gam, row_ends):
     within = flat.view(nb, B, M).cumsum_(1)  # f32, in place
     btot = within[:, -1, :].to(torch.float64)
     bbase = torch.cumsum(btot, 0) - btot  # exclusive block prefixes
-    picked = bbase[row_ends // B] + flat[row_ends].to(torch.float64)
+    pos = (row_ends - base).clamp(-1, flat.shape[0] - 1)
+    at = pos.clamp(min=0)
+    picked = bbase[at // B] + flat[at].to(torch.float64)
+    picked = torch.where((pos >= 0)[:, None], picked, 0.0)
     g = torch.diff(picked, dim=0, prepend=torch.zeros_like(picked[:1]))
     return torch.clamp(g, min=0.0).to(torch.float32)
 
 
 def decode_gammas_windows(pi, T, E, keys, valid, seg_of_contig, row_ends,
-                          precision=None):
+                          precision=None, mesh=None):
     """Row-resolution posterior masses through the window kernels
     (window_kernel.py:decode_gammas_windows): K3, contig_boundaries, K1,
     K2g, then the two-level prefix sum (rows_from_windows).  Segment-major
@@ -1355,19 +1391,27 @@ def decode_gammas_windows(pi, T, E, keys, valid, seg_of_contig, row_ends,
     window, strictly increasing (pack_window_row_ends).  Returns (ll,
     gammas (n_rows, M) f32): each row's gammas sum to its span in windows.
 
+    Under a ``mesh`` (mesh.py:make_sharded_window_decode) keys and valid are
+    this rank's block of segments and row_ends index the global stream:
+    each rank sums the part of every row that lies in its block (a
+    prefix-sum difference, deterministic, no atomics) and the parts are
+    summed over the ranks, so a row that straddles two blocks adds its two
+    parts.
+
     Default precision is 'tensorfloat32' (f32 carries), not the E-step's
     'default' (bf16 carries): bf16 operator carries put visible noise on the
     segment-boundary posteriors."""
     if precision is None:
         precision = "tensorfloat32"
-    ops, logs = segment_operators(T, E, keys, valid, precision)
-    seg_has = torch.any(valid, 1)
-    ll, A_in, Q_end, _ = contig_boundaries(pi, ops, logs, seg_of_contig, seg_has)
-    *_, gam = stats_pass(
-        T, E, keys, valid, A_in.contiguous(), Q_end.contiguous(),
-        precision=precision, emit_gamma=True,
+    ll, A_in, Q_end, _, lo = _boundaries(
+        pi, T, E, keys, valid, seg_of_contig, precision, mesh
     )
-    return ll, rows_from_windows(gam, row_ends)
+    *_, gam = stats_pass(
+        T, E, keys, valid, A_in, Q_end, precision=precision, emit_gamma=True,
+    )
+    part = rows_from_windows(gam, row_ends, base=lo * keys.shape[1])
+    del gam
+    return ll, mesh_mod.reduce_sum(mesh, part)
 
 
 def viterbi_segment_ops(T, E, keys, valid):
@@ -1626,16 +1670,31 @@ def viterbi_segment_paths(T, E, keys, valid, seg_entry, seg_exit, block=None):
     return viterbi_paths_plain(T, E, keys, valid, seg_entry, seg_exit, block)
 
 
-def viterbi_windows(pi, T, E, keys, valid, seg_of_contig, row_ends, block=None):
+def viterbi_windows(pi, T, E, keys, valid, seg_of_contig, row_ends, block=None,
+                    mesh=None):
     """MAP (Viterbi) decode through the window kernels
     (window_kernel.py:viterbi_windows): phase A (K4), phase B (K7), phase C
     (K5), then the state at each row's last window.  Returns (n_rows,)
-    int32."""
-    Wops = viterbi_segment_ops(T, E, keys, valid)
+    int32.
+
+    Under a ``mesh`` (mesh.py:make_sharded_window_viterbi) keys and valid
+    are this rank's block of segments: K4 on the block, the max-plus
+    operators gathered, K7 replicated, K5 on the block; each row's state is
+    picked by the rank whose block holds its last window (the others give 0)
+    and summed over the ranks."""
+    Wops = mesh_mod.gather_rows(mesh, viterbi_segment_ops(T, E, keys, valid))
     seg_entry, seg_exit = viterbi_boundary_states(pi, Wops, seg_of_contig)
-    path = viterbi_segment_paths(T, E, keys, valid, seg_entry, seg_exit,
-                                 block=block)
-    return path.reshape(-1)[row_ends].to(torch.int32)
+    del Wops
+    S, L = keys.shape
+    lo = mesh_mod.block_start(mesh, S)
+    path = viterbi_segment_paths(
+        T, E, keys, valid, seg_entry[lo : lo + S].contiguous(),
+        seg_exit[lo : lo + S].contiguous(), block=block,
+    ).reshape(-1)
+    rel = row_ends - lo * L
+    mine = (rel >= 0) & (rel < S * L)
+    picked = torch.where(mine, path[rel.clamp(0, S * L - 1)], 0).to(torch.int32)
+    return mesh_mod.reduce_sum(mesh, picked)
 
 
 # ---------------------------------------------------------------------------

@@ -384,10 +384,9 @@ def test_cv_exits_match_jax(cv_files, tmp_path, bad):
 
 # ---------------------------------------------------------- CLI surface
 
-# options of the JAX CLI the port does not have (multi-host, ROADMAP A8),
-# and the port's --device in place of JAX's --devices
-JAX_ONLY = {"--devices", "--coordinator", "--num-processes", "--process-id",
-            "--replicated-data"}
+# the port's --device in place of JAX's --devices (one rank owns one device,
+# so the port has no cap on a mesh's devices)
+JAX_ONLY = {"--devices"}
 TORCH_ONLY = {"--device"}
 
 

@@ -1333,3 +1333,46 @@ def test_cv_on_card(dev, tmp_path):
             test.E_step()
             lls.append(test.loglik(False))
         np.testing.assert_allclose(lls[0], lls[1], rtol=1e-5)
+
+
+def test_two_ranks_sharing_the_card(dev, tmp_path):
+    """The sharded direct E-step (at 'highest') and the window decode on two
+    ranks sharing cuda:0 under gloo (SMCPP_TPU_DIST_BACKEND=gloo: NCCL
+    refuses two ranks on one card), against one rank on the same inputs: ll
+    rtol 1e-6 (K6 on the same operators), statistics rtol 1e-5 (K2 sums
+    each rank's segments apart), decoded rows rtol 1e-4 / atol 1e-3 of a
+    row's mass; each rank launched K3, K6, K1, K2 and K2g."""
+    import os
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    try:
+        import _torch_dist_worker as W
+    finally:
+        sys.path.remove(here)
+    ranks = W.launch("card", 2, str(tmp_path), timeout=300,
+                     env={"SMCPP_TPU_DIST_BACKEND": "gloo"})
+    pi, T, E, keys, valid, soc, row_spans = (
+        x.to(dev) if torch.is_tensor(x) else x for x in W.card_problem())
+    one = wk.estep_direct(pi, T, E, keys, valid, soc, precision="highest")
+    ends = torch.as_tensor(wk.pack_window_row_ends(row_spans, keys.shape[1], soc),
+                           device=dev)
+    ll1, g1 = wk.decode_gammas_windows(pi, T, E, keys, valid, soc, ends)
+    for r in ranks:
+        for k in ("segment_ops", "boundary_scan", "asc_sweep", "dsc_sweep",
+                  "dsc_sweep_gamma"):
+            assert int(r[f"launches_{k}"]) > 0, k
+        for k in r:
+            if not k.startswith("launches"):
+                np.testing.assert_array_equal(r[k], ranks[0][k])
+    z = ranks[0]
+    assert int(z["n_local"]) * 2 == keys.shape[0] + keys.shape[0] % 2
+    assert np.isclose(float(z["estep0"]), float(one[0]), rtol=1e-6, atol=0)
+    for i in (1, 2, 3):
+        np.testing.assert_allclose(z[f"estep{i}"], one[i].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-7 * float(one[i].abs().max()))
+    assert np.isclose(float(z["decode_ll"]), float(ll1), rtol=1e-6, atol=0)
+    g1 = g1.cpu().numpy()
+    np.testing.assert_allclose(z["decode"], g1, rtol=1e-4,
+                               atol=1e-3 * float(g1.sum(1).max()))
