@@ -102,7 +102,23 @@ Phases, in order; any failure ends the script with a non-zero exit:
    launched in each rank); each rank's wall time, peak device memory and
    the CUDA-event times of its collectives and sharded passes
    (``rank_child``).  Alone: ``python3 -c 'import chip_smoke as c,
-   tempfile; c.card(); c.build(); c.multirank_path(tempfile.mkdtemp())'``.
+   tempfile; c.card(); c.build(); c.multirank_path(tempfile.mkdtemp())'``;
+11. the over-budget posterior (``over_budget_posterior``): three contigs of
+   the lengths of GRCh38's chromosomes 1, 2 and 3 (689.4 Mbp, n = 20, seeds
+   of their own) through ``posterior --device cuda --map --intervals`` with
+   phase 4's model, at the defaults, with no ``SMCPP_TPU_ESTREAM_BYTES``:
+   the card's own budget turns on alpha remat in the E-step (K1's snapshot
+   and range modes, K2 by block) and the blocked Viterbi (K5's blocked
+   forward and backtrace), and the decode goes row level; the gate figures,
+   the manager's log line, the launches and every file's npz are checked;
+   the wall time, the peak device memory and the routes' phases printed
+   (``over_budget_phases``); on the manager's first 32 segments each new
+   kernel against its plain version and the remat E-step against the
+   stored-stream one (``compare_remat``); the routes against the stored
+   ones in time on 6104 segments and, for K5, on every segment
+   (``remat_against_stored``).  Alone: ``python3 -c 'import chip_smoke as
+   c, tempfile; c.card(); c.build(); c.over_budget_posterior(
+   tempfile.mkdtemp(), "MODEL.json")'`` with a fitted model.final.json.
 
 K2's plain version sums each window's per-key masses in f64
 (``dsc_sweep_plain(..., sum_dtype=float64)``, ``k2_plain``): the f32
@@ -167,15 +183,18 @@ with a renormalisation at every step), so ``library_ms`` is null.
 
 The line before the last is the kernels' JSON record (launches from each
 kernel's own path: K1-K3 and K6 from phase 4's estimate, K2g, K4, K5 and K7
-from phase 5's posterior; errors, times and bounds from the comparison on
-that path's own inputs, for K5 the whole posterior contig); the last line
-is ``{"ok": true, "device": {...}}``.
+from phase 5's posterior, the over-budget modes of K1, K2 and K5 from phase
+11's; errors, times and bounds from the comparison on that path's own
+inputs, for K5 the whole posterior contig, for the over-budget modes phase
+11's first 32 segments, each time one pass's launches of the kernel); the
+last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is present.
 """
 
 import contextlib
 import gzip
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -229,7 +248,7 @@ def card():
     return smi
 
 
-def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False):
+def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False, block=None):
     """(bound_ms, bound_by) of one launch of kernel ``name`` on these inputs:
     the larger of its operations over the peak rate of their pipe (and all
     of them over the issue rate) and the bytes it must move (each input read
@@ -259,6 +278,21 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False):
                           the index (ALU pipe: the first-index argmax
                           compiles to FSETP, FSEL and SEL); (S, L) int32
                           path out
+
+    The over-budget routes, per remat E-step or blocked Viterbi (``block``
+    windows a block, nb = L / block):
+
+      K1 asc_sweep_remat   two sweeps (the snapshots', the blocks'): 2 M^2
+                           f64 FMA per valid window; keys and valid read
+                           twice, the (nb, S, M) snapshots written and
+                           read, the block streams written
+      K2 dsc_sweep_range   K2's, the block streams read
+      K5 viterbi_fwd_blocked  two forward sweeps of K5's candidates; keys and
+                           valid read twice, the (nb, S, M) f32 snapshots
+                           written and read, the (S, L, M) int8
+                           backpointers written
+      K5 viterbi_back_blocked  the backpointers read, the (S, L) int32 path
+                           written
     """
     S, L = keys.shape
     n_keys, M = E.shape
@@ -283,6 +317,16 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False):
     elif name == "viterbi_paths":
         f32, b = nv * M * M, b + 4 * W + 8 * S
         alu = (2 if alu_at_fma else 3) * nv * M * M
+    elif name == "asc_sweep_remat":
+        snaps = 2 * (W // block) * M * elt  # (nb, S, M), written and read
+        return _roofline(0, 0, 2 * b + snaps + W * M * elt + 8 * S * M, 2 * nv * M * M)
+    elif name == "dsc_sweep_range":
+        return bound("dsc_sweep", E, keys, valid, elt)
+    elif name == "viterbi_fwd_blocked":
+        f32, alu = 2 * nv * M * M, 2 * 3 * nv * M * M
+        b = 2 * b + 2 * 4 * (W // block) * M + W * M + 8 * S
+    elif name == "viterbi_back_blocked":
+        f32, b = 0, W * M + 4 * W + 8 * S
     else:
         raise ValueError(name)
     return _roofline(f32, f64, b, 0, alu, alu_at_fma)
@@ -1414,10 +1458,11 @@ def cli_posterior(label, out, model_json, data):
     return im, launches
 
 
-def check_posterior_npz(out, data, im):
-    """The posterior's npz against what it must hold: per-contig gammas
-    whose columns sum to 1, unnormalized row masses equal to the row spans,
-    MAP states in [0, M), quantiles non-decreasing in q."""
+def check_posterior_npz(out, data, im, i=0):
+    """The posterior's npz against what it must hold for ``data``, the
+    ``i``-th file of the command: per-contig gammas whose columns sum to 1,
+    unnormalized row masses equal to the row spans, MAP states in [0, M),
+    quantiles non-decreasing in q."""
     M = len(im.hidden_states) - 1
     z = np.load(out)
     g, sites = z[data], z[data + "_sites"]
@@ -1431,7 +1476,7 @@ def check_posterior_npz(out, data, im):
     colerr = float(np.abs(g.sum(0) - 1.0).max())
     if colerr > 1e-4:
         raise AssertionError(f"gamma columns do not sum to 1 (max err {colerr:.2e})")
-    mass = im.gammas[0].sum(1)
+    mass = im.gammas[i].sum(1)
     spans = sites.astype(np.float64)
     rowerr = float(np.max(np.abs(mass - spans) / spans))
     if rowerr > 1e-3:
@@ -1725,6 +1770,460 @@ def chr1_posterior(workdir, model_json):
                              "(K6's second launch is the row decode's)")
     check_posterior_npz(out, data, im)
     row_phases("chr1", im, viterbi=False)
+
+
+# Phase 11, the over-budget posterior: contigs of the lengths of GRCh38's
+# chromosomes 1, 2 and 3, 689.4 Mbp in one manager
+GENOME_BP = (248_956_422, 242_193_529, 198_295_559)
+REMAT_SEGMENTS = 6104  # the 100 Mbp contig's segment count (phase 5)
+
+
+class _Records(logging.Handler):
+    "The messages one logger emits while it is attached."
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def over_budget_posterior(workdir, model_json):
+    """Phase 11: three simulated contigs of chr1's, chr2's and chr3's lengths
+    (n = 20, seeds of their own) through ``posterior --device cuda --map
+    --intervals`` with phase 4's model, at the defaults (M = 32, every base a
+    window), with no SMCPP_TPU_ESTREAM_BYTES: the card's own budget (37.5% of
+    its memory) turns on both over-budget routes.  Checks that the cost
+    model picked windows, the gate figures (alpha stream over the budget:
+    alpha remat at remat_block_size(L); the decode over 70% of the card: row
+    level; the backpointers over the budget: the blocked Viterbi), the
+    manager's log line, the launches (K3, K6, K1 snapshot and range, K2 by
+    block; K6 in the row decode; K4, K7, K5 blocked forward and backtrace;
+    no whole-stream K1, K2, K2g or K5) and every file's npz; prints the wall
+    time, the peak device memory and the phases of the remat E-step and
+    the blocked Viterbi (``over_budget_phases``).  Then on the manager's
+    first 32 segments each new kernel against its plain version and the
+    remat E-step against the stored-stream one (``compare_remat``), and the
+    two routes against the stored ones in time on its first REMAT_SEGMENTS
+    segments and, for K5, on every segment (``remat_against_stored``).
+    Returns (launches, kernel records)."""
+    import torch
+
+    from smcpp_tpu_torch.commands import main as cli
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    if "SMCPP_TPU_ESTREAM_BYTES" in os.environ:
+        raise AssertionError("phase 11 must reach the over-budget routes on the card's "
+                             "own budget: unset SMCPP_TPU_ESTREAM_BYTES")
+    t0 = time.perf_counter()
+    data = [simulate(workdir, f"chr{i + 1}", bp, SEED + 11 + i)
+            for i, bp in enumerate(GENOME_BP)]
+    log(f"simulated 3 contigs of {', '.join(map(str, GENOME_BP))} bp "
+        f"({sum(GENOME_BP) / 1e6:.1f} Mbp), n=20: {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(workdir, "genome.npz")
+    rec = _Records()
+    mlog = logging.getLogger("smcpp_tpu_torch.inference.manager")
+    level = mlog.level
+    mlog.addHandler(rec)
+    mlog.setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        im, launches = launched(lambda: cli.main([*POSTERIOR, model_json, out, *data]))
+    finally:
+        mlog.removeHandler(rec)
+        mlog.setLevel(level)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    S, L = im._wkeys.shape
+    M = len(im.hidden_states) - 1
+    B = wk.remat_block_size(L)
+    n_rows = int((im._spans > 0).sum())
+    span_cost = n_rows * 2 * im._nbits * 30
+    ab = wk.carry_dtype(im.precision, torch.float32).itemsize
+    budget = im._hbm_budget()
+    gates = {
+        "alpha stream": (im._window_stream_bytes(ab), budget),
+        "decode (12 B)": (im._window_stream_bytes(12), im._hbm_budget(0.70)),
+        "backpointers (2 B)": (im._window_stream_bytes(2), budget),
+        "blocked Viterbi": (im._window_stream_bytes((B + 4.0 * (L // B)) / L), budget),
+    }
+    log(f"posterior [genome]: {wall:.2f} s wall, peak device memory {peak / 1e9:.2f} GB; "
+        f"S x L = {(S, L)} ({S * L} windows), M = {M}, {im.em_idx.n_keys} keys, "
+        f"{n_rows} rows, nbits {im._nbits}; cost model: windows {im._total_bases:.4g} "
+        f"against span {span_cost:.4g} ({span_cost / im._total_bases:.3f}x); rung "
+        f"{im.precision!r}, alpha carry {ab} B; remat block {im._alpha_remat}; snapshots "
+        f"{S * (L // B) * M * ab / 1e9:.3f} GB (E-step), {S * (L // B) * M * 4 / 1e9:.3f} "
+        f"GB (Viterbi); gates, need / against GB: " + ", ".join(
+            f"{n} {a / 1e9:.2f} / {b / 1e9:.2f}" for n, (a, b) in gates.items()))
+    log(f"  kernel launches {launches}; manager log: "
+        + " | ".join(m for m in rec.messages if "remat" in m or "block" in m))
+    if not im._use_windows:
+        raise AssertionError("posterior [genome]: the cost model did not pick windows")
+    if im._alpha_remat != B or not any(f"alpha remat ON (block {B})" in m
+                                       for m in rec.messages):
+        raise AssertionError(f"posterior [genome]: alpha remat is not on at block {B} "
+                             f"({im._alpha_remat})")
+    if im._window_decode_fits() or im._window_viterbi_fits():
+        raise AssertionError("posterior [genome]: a window gate did not close")
+    if gates["blocked Viterbi"][0] > budget:
+        raise AssertionError("posterior [genome]: the blocked Viterbi is over budget too")
+    nb = L // B
+    want = {"segment_ops": 1, "boundary_scan": 2, "asc_sweep_remat": 1 + nb,
+            "dsc_sweep_range": nb, "viterbi_ops": 1, "viterbi_boundary": 1,
+            "viterbi_fwd_blocked": 1 + nb, "viterbi_back_blocked": nb}
+    if launches != want:
+        raise AssertionError(f"posterior [genome] launches {launches}, want {want} "
+                             "(K6's second launch is the row decode's)")
+    for i, d in enumerate(data):
+        check_posterior_npz(out, d, im, i)
+    pi, T, E = (x.float().contiguous() for x in im.tensors())
+    entry, exit_ = over_budget_phases(im, pi, T, E)
+    records = compare_remat(im, pi, T, E, entry, exit_)
+    remat_against_stored(im, pi, T, E, entry, exit_)
+    return launches, records
+
+
+def over_budget_phases(im, pi, T, E):
+    """CUDA-event milliseconds of the phases of the manager's remat E-step
+    (K3, K6, K1 snapshot, the blocks' K1 range and K2 by block summed,
+    ``boundary_stats``) and of its blocked Viterbi (K4, K7, K5's snapshot
+    forward, the blocks' forward and backtrace summed), each beside its
+    bound.  Returns K7's (seg_entry, seg_exit)."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    keys, valid, soc = im._wkeys, im._wvalid, im._soc
+    prec, B = im.precision, im._alpha_remat
+    S, L = keys.shape
+    shape = f"S x L = {(S, L)}, M = {T.shape[0]}, {E.shape[0]} keys, block {B}"
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def timed(t, name, fn):
+        a, b = ev(), ev()
+        a.record()
+        out = fn()
+        b.record()
+        t.setdefault(name, []).append((a, b))
+        return out
+
+    def total(t):
+        torch.cuda.synchronize()
+        return {n: sum(a.elapsed_time(b) for a, b in v) for n, v in t.items()}
+
+    t = {}
+    ops, logs = timed(t, "segment_ops (K3)",
+                      lambda: wk.segment_operators(T, E, keys, valid, prec))
+    _, A_in, Q_end, cvalid = timed(t, "contig_boundaries (K6)", lambda: wk.contig_boundaries(
+        pi, ops, logs, soc, torch.any(valid, 1)))
+    del ops
+    r = wk.AlphaRemat(T, E, keys, valid, A_in.contiguous(), Q_end.contiguous(), prec, B)
+    timed(t, "asc_sweep_remat snapshots (K1)", r.snap)
+    for b in range(r.n_blocks - 1, -1, -1):
+        timed(t, "asc_sweep_remat blocks (K1)", lambda: r.asc_block(b))
+        timed(t, "dsc_sweep_range (K2)", lambda: r.dsc_block(b))
+    a_end, u, xo, _ = timed(t, "finish", r.finish)
+    timed(t, "boundary_stats", lambda: wk.boundary_stats(pi, T, a_end, u, xo, soc, cvalid))
+    del r
+    te = total(t)
+    log(f"remat E-step breakdown [{shape}]: total {sum(te.values()):.2f} ms; "
+        + ", ".join(f"{n} {v:.2f}" for n, v in te.items()))
+    elt = wk.carry_dtype(prec, torch.float32).itemsize
+    M = T.shape[0]
+    log_bounds("remat E-step", te, {
+        "segment_ops (K3)": k3_bound(E, keys, valid),
+        "contig_boundaries (K6)": scan_bound("boundary_scan", M, S, soc),
+        "asc_sweep_remat snapshots (K1)": bound("asc_sweep", E, keys, valid, 0),
+        "dsc_sweep_range (K2)": bound("dsc_sweep_range", E, keys, valid, elt),
+    })
+    k1 = te["asc_sweep_remat snapshots (K1)"] + te["asc_sweep_remat blocks (K1)"]
+    b1 = bound("asc_sweep_remat", E, keys, valid, elt, block=B)
+    log(f"  asc_sweep_remat (K1, both modes) {k1:.3f} ms / bound {b1[0]:.4f} ({b1[1]})")
+
+    t = {}
+    W = timed(t, "viterbi_ops (K4)", lambda: wk.viterbi_ops_cuda(T, E, keys, valid))
+    entry, exit_ = timed(t, "viterbi_boundary (K7)",
+                         lambda: wk.viterbi_boundary_states(pi, W, soc))
+    del W
+    k5 = wk.ViterbiPathsBlocked(T, E, keys, valid, entry, exit_, B)
+    timed(t, "viterbi_fwd_blocked snapshots (K5)", k5.fwd_snap)
+    for b in range(k5.n_blocks - 1, -1, -1):
+        timed(t, "viterbi_fwd_blocked blocks (K5)", lambda: k5.fwd_block(b))
+        timed(t, "viterbi_back_blocked (K5)", lambda: k5.back_block(b))
+    del k5
+    tv = total(t)
+    log(f"blocked Viterbi breakdown [{shape}]: total {sum(tv.values()):.2f} ms; "
+        + ", ".join(f"{n} {v:.2f}" for n, v in tv.items()))
+    kf = tv["viterbi_fwd_blocked snapshots (K5)"] + tv["viterbi_fwd_blocked blocks (K5)"]
+    bf = bound("viterbi_fwd_blocked", E, keys, valid, block=B)
+    bb = bound("viterbi_back_blocked", E, keys, valid, block=B)
+    log_bounds("blocked Viterbi", tv, {
+        "viterbi_ops (K4)": bound("viterbi_ops", E, keys, valid),
+        "viterbi_boundary (K7)": scan_bound("viterbi_boundary", M, S, soc),
+        "viterbi_back_blocked (K5)": bb,
+    })
+    log(f"  viterbi_fwd_blocked (K5, both modes) {kf:.3f} ms / bound {bf[0]:.4f} ({bf[1]})")
+    return entry, exit_
+
+
+def compare_remat(im, pi, T, E, entry, exit_, n_seg=32):
+    """The new kernels against their plain versions on the over-budget
+    manager's first ``n_seg`` segments, at its rung and remat block, from
+    the boundary vectors K3 and K6 give and K7's states: K1's snapshots
+    equal K1's whole stream at the block ends bit for bit and its block
+    streams K1 on the block alone; both against the plain forward (f64
+    sums: ``k1_plain``) at K1's tolerances, the differing entries counted;
+    the remat pass (K1 snapshot and range, K2 by block) against the plain
+    descending steps (f64 sums) over the plain block streams, the plain
+    remat pass (``stats_pass_remat_plain``), at K2's tolerances; the
+    remat E-step against the stored-stream E-step on the same segments (ll
+    rtol 1e-6, statistics rtol 1e-2 / atol 1e-6: tests/test_decode.py's);
+    K5 blocked equal to K5 and to ``viterbi_paths_plain(block=)`` bit for
+    bit.  Returns {name: (max abs err, ms, plain ms, bound ms, bound by)}
+    of the four kernels, each ms one E-step's or Viterbi's launches of it."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    prec, B = im.precision, im._alpha_remat
+    sl = slice(0, n_seg)
+    keys, valid = im._wkeys[sl].contiguous(), im._wvalid[sl].contiguous()
+    soc = np.arange(n_seg)[None]  # the first segments are the first contig's
+    S, L = keys.shape
+    ops, logs = wk.segment_operators(T, E, keys, valid, prec)
+    _, A_in, Q_end, _ = wk.contig_boundaries(pi, ops, logs, soc, torch.any(valid, 1))
+    A_in, Q_end = A_in.contiguous(), Q_end.contiguous()
+    cdt = wk.carry_dtype(prec, torch.float32)
+    tag = (f"over-budget path, first {n_seg} segments: S x L = {(S, L)}, M = "
+           f"{T.shape[0]}, {E.shape[0]} keys, rung {prec!r}, block {B}")
+    s_tol = BF16_ULP if cdt == torch.bfloat16 else HIGHEST_RTOL
+    rtol = DEFAULT_RTOL if prec == "default" else HIGHEST_RTOL
+
+    # K1: snapshots and blocks
+    r = wk.AlphaRemat(T, E, keys, valid, A_in, Q_end, prec, B)
+    r.snap()
+    al, ae = wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec)
+    want = torch.cat([A_in.to(cdt)[None], al[:, B - 1:L - 1:B].transpose(0, 1)])
+    if not (torch.equal(r.snaps, want) and torch.equal(r.alpha_end, ae)):
+        raise AssertionError(f"asc_sweep_remat [{tag}]: snapshots differ from K1's stream")
+    t0 = time.perf_counter()
+    al_p, ae_p = k1_plain(T, E, keys, valid, A_in, prec)
+    torch.cuda.synchronize()
+    k1p = time.perf_counter() - t0
+    snaps_p = torch.cat([A_in.to(cdt)[None], al_p[:, B - 1:L - 1:B].transpose(0, 1)])
+    del al, al_p
+    e1 = check_close(f"asc_sweep_remat [{tag}] snapshots", r.snaps, snaps_p, s_tol, 1e-7)
+    check_close(f"asc_sweep_remat [{tag}] alpha_end", r.alpha_end, ae_p, HIGHEST_RTOL, 1e-7)
+    n_diff = int((r.snaps != snaps_p).sum()) + int((r.alpha_end != ae_p).sum())
+    n_all = r.snaps.numel() + r.alpha_end.numel()
+    blocks_p = {}
+    for b in range(r.n_blocks - 1, -1, -1):
+        bs = slice(b * B, (b + 1) * B)
+        r.asc_block(b)
+        k, v, a0 = keys[:, bs].contiguous(), valid[:, bs].contiguous(), r.snaps[b].float()
+        if b in (0, r.n_blocks - 1) and not torch.equal(
+                r.alphas, wk.asc_sweep_cuda(T, E, k, v, a0, prec)[0]):
+            raise AssertionError(f"asc_sweep_remat [{tag}]: block {b}'s stream differs "
+                                 "from K1 on the block alone")
+        t0 = time.perf_counter()
+        blk_p, _ = k1_plain(T, E, k, v, a0, prec)
+        torch.cuda.synchronize()
+        k1p += time.perf_counter() - t0
+        blocks_p[b] = blk_p
+        e1 = max(e1, check_close(f"asc_sweep_remat [{tag}] block {b}", r.alphas, blk_p,
+                                 s_tol, 1e-7))
+        n_diff += int((r.alphas != blk_p).sum())
+        n_all += blk_p.numel()
+        r.dsc_block(b)
+    got = r.finish()
+    log(f"asc_sweep_remat [{tag}]: snapshots bit for bit K1's stream, blocks K1's on "
+        f"each block; {n_diff} of {n_all} entries differ from the plain version's bits")
+
+    # K2 by block against the plain descending steps over the plain blocks
+    # (with K1's bits, the same streams)
+    t0 = time.perf_counter()
+    q, u = Q_end.clone(), torch.zeros_like(Q_end)
+    xo = torch.zeros((T.shape[0],) * 2, dtype=torch.float64, device=T.device)
+    gsum = torch.zeros(E.shape, dtype=torch.float64, device=T.device)
+    vnext = wk._vnext(valid)
+    for b in range(r.n_blocks - 1, -1, -1):
+        bs = slice(b * B, (b + 1) * B)
+        q, u = wk._dsc_steps(T, E, keys[:, bs], valid[:, bs], vnext[:, bs], blocks_p[b],
+                             q, u, xo, gsum, sum_dtype=torch.float64)
+    torch.cuda.synchronize()
+    k2p = (time.perf_counter() - t0) * 1e3
+    want = (ae_p, u, xo, gsum)
+    e2 = 0.0
+    for name, g, w, atol in zip(("alpha_end", "u_start", "xo", "gsum"), got, want,
+                                (1e-7, 1e-7, 1e-8, 1e-8)):
+        err = check_close(f"remat stats_pass [{tag}] {name}", g, w, rtol,
+                          atol * float(w.abs().max()) if name in ("xo", "gsum") else atol)
+        if name in ("u_start", "xo", "gsum"):
+            e2 = max(e2, err)
+    nv = float(valid.sum())
+    if abs(float(got[3].sum()) - nv) > 1e-6 * nv:
+        raise AssertionError(f"remat stats_pass [{tag}]: sum(gsum) != valid windows")
+
+    # the remat E-step against the stored-stream E-step
+    ests = [wk.estep_direct(pi, T, E, keys, valid, soc, precision=prec, alpha_remat=a)
+            for a in (B, None)]
+    dll = _rel(float(ests[0][0]), float(ests[1][0]))
+    if dll > 1e-6:
+        raise AssertionError(f"remat E-step [{tag}]: ll {dll:.3e} from the stored stream's")
+    dst = []
+    for name, a, b in zip(("pi-stat", "xisum", "gamma_sums"), ests[0][1:], ests[1][1:]):
+        check_close(f"remat E-step [{tag}] {name}", a, b, 1e-2, 1e-6)
+        dst.append(float(((a - b).abs() / b.abs().clamp(min=1e-300)).max()))
+    log(f"remat E-step [{tag}]: ll {dll:.3e} from the stored stream's (relative); "
+        f"statistics within {max(dst):.3e} (relative; bf16 snapshots against the "
+        "bf16 stream)")
+
+    # K5 blocked
+    e_, x_ = entry[sl].contiguous(), exit_[sl].contiguous()
+    path = wk.viterbi_paths_blocked_cuda(T, E, keys, valid, e_, x_, B)
+    check_equal(f"viterbi_paths_blocked [{tag}] against K5", path,
+                wk.viterbi_paths_cuda(T, E, keys, valid, e_, x_))
+    t0 = time.perf_counter()
+    path_p = wk.viterbi_paths_plain(T, E, keys, valid, e_, x_, block=B)
+    torch.cuda.synchronize()
+    plain_k5_ms = (time.perf_counter() - t0) * 1e3
+    check_equal(f"viterbi_paths_blocked [{tag}]", path, path_p)
+    log(f"viterbi_paths_blocked [{tag}]: equal to K5 and to the plain blocked walk bit "
+        "for bit")
+
+    # times of one pass's launches of each kernel, and the plain versions'
+    def remat_pass():
+        rr = wk.AlphaRemat(T, E, keys, valid, A_in, Q_end, prec, B)
+        yield "k1", rr.snap
+        for b in range(rr.n_blocks - 1, -1, -1):
+            yield "k1", lambda b=b: rr.asc_block(b)
+            yield "k2", lambda b=b: rr.dsc_block(b)
+
+    def blocked_pass():
+        kk = wk.ViterbiPathsBlocked(T, E, keys, valid, e_, x_, B)
+        yield "fwd", kk.fwd_snap
+        for b in range(kk.n_blocks - 1, -1, -1):
+            yield "fwd", lambda b=b: kk.fwd_block(b)
+            yield "back", lambda b=b: kk.back_block(b)
+
+    t = launch_times(remat_pass, 5)
+    t.update(launch_times(blocked_pass, 5))
+    elt = cdt.itemsize
+    rec = {
+        "asc_sweep_remat": (e1, t["k1"], k1p * 1e3,
+                            *bound("asc_sweep_remat", E, keys, valid, elt, block=B)),
+        "dsc_sweep_range": (e2, t["k2"], k2p,
+                            *bound("dsc_sweep_range", E, keys, valid, elt)),
+        "viterbi_fwd_blocked": (0.0, t["fwd"], plain_k5_ms,
+                                *bound("viterbi_fwd_blocked", E, keys, valid, block=B)),
+        "viterbi_back_blocked": (0.0, t["back"], plain_k5_ms,
+                                 *bound("viterbi_back_blocked", E, keys, valid, block=B)),
+    }
+    log(f"[{tag}] ms kernel/plain/bound: "
+        + " ".join(f"{n} {v[1]:.3f}/{v[2]:.1f}/{v[3]:.4f}" for n, v in rec.items())
+        + f"; max abs err {e1:.2e} {e2:.2e} 0 0 (K5 blocked bit for bit)")
+    return rec
+
+
+def launch_times(passes, reps):
+    """Mean CUDA-event milliseconds a pass spends in each kind of launch:
+    ``passes()`` yields (kind, launch) pairs in order; each launch is timed
+    by events around it, summed by kind over the pass, averaged over
+    ``reps`` passes after one warm-up pass."""
+    import torch
+
+    for _, fn in passes():
+        fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        for kind, fn in passes():
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            marks.append((kind, a, b))
+    torch.cuda.synchronize()
+    out = {}
+    for kind, a, b in marks:
+        out[kind] = out.get(kind, 0.0) + a.elapsed_time(b) / reps
+    return out
+
+
+def remat_against_stored(im, pi, T, E, entry, exit_):
+    """The over-budget routes against the stored ones in time (CUDA events,
+    in turns stored, remat, remat, stored): on the manager's first
+    REMAT_SEGMENTS segments, the stored-stream K1 and K2 against the remat
+    pass's K1 snapshot and range and K2 by block (the statistics agreeing
+    as in ``compare_remat``); on every segment, K5 against K5 blocked (bit
+    for bit: the backpointer stream, over the budget's policy, still fits the
+    card for this one comparison)."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    prec, B = im.precision, im._alpha_remat
+    n = min(REMAT_SEGMENTS, im._wkeys.shape[0])
+    keys, valid = im._wkeys[:n].contiguous(), im._wvalid[:n].contiguous()
+    M = T.shape[0]
+    A_in = torch.rand((n, M), device=T.device)
+    Q_end = torch.rand((n, M), device=T.device)
+
+    def remat():
+        rr = wk.AlphaRemat(T, E, keys, valid, A_in, Q_end, prec, B)
+        yield "remat K1", rr.snap
+        for b in range(rr.n_blocks - 1, -1, -1):
+            yield "remat K1", lambda b=b: rr.asc_block(b)
+            yield "remat K2", lambda b=b: rr.dsc_block(b)
+
+    def stored():
+        al = [None]
+
+        def k1():
+            al[0] = wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec)[0]
+
+        def k2():
+            wk.dsc_sweep_cuda(T, E, keys, valid, al[0], Q_end)
+            al[0] = None
+
+        yield "stored K1", k1
+        yield "stored K2", k2
+
+    t = launch_times(stored, 3)
+    t.update(launch_times(remat, 3))
+    t2 = launch_times(remat, 3)
+    t2.update(launch_times(stored, 3))
+    log(f"stored against remat on the first {n} segments (S x L = {tuple(keys.shape)}, "
+        f"M = {M}, rung {prec!r}, block {B}), ms, two turns: " + ", ".join(
+            f"{k} {t[k]:.2f} / {t2[k]:.2f}" for k in sorted(t)))
+    log(f"  K1 + K2: stored {t['stored K1'] + t['stored K2']:.2f} / "
+        f"{t2['stored K1'] + t2['stored K2']:.2f}, remat "
+        f"{t['remat K1'] + t['remat K2']:.2f} / {t2['remat K1'] + t2['remat K2']:.2f}")
+    S = im._wkeys.shape[0]
+    k5 = [wk.viterbi_paths_cuda(T, E, im._wkeys, im._wvalid, entry, exit_)]
+    blocked = wk.viterbi_paths_blocked_cuda(T, E, im._wkeys, im._wvalid, entry, exit_, B)
+    check_equal(f"viterbi_paths_blocked [every segment, S = {S}]", blocked, k5[0])
+    del k5, blocked
+    tk = [cuda_ms(lambda: wk.viterbi_paths_cuda(T, E, im._wkeys, im._wvalid, entry,
+                                                exit_), 2),
+          cuda_ms(lambda: wk.viterbi_paths_blocked_cuda(T, E, im._wkeys, im._wvalid, entry,
+                                                        exit_, B), 2)]
+    tk += [cuda_ms(lambda: wk.viterbi_paths_blocked_cuda(T, E, im._wkeys, im._wvalid,
+                                                         entry, exit_, B), 2),
+           cuda_ms(lambda: wk.viterbi_paths_cuda(T, E, im._wkeys, im._wvalid, entry,
+                                                 exit_), 2)]
+    b5 = bound("viterbi_paths", E, im._wkeys, im._wvalid)
+    bf = bound("viterbi_fwd_blocked", E, im._wkeys, im._wvalid, block=B)
+    bb = bound("viterbi_back_blocked", E, im._wkeys, im._wvalid, block=B)
+    log(f"K5 against K5 blocked on every segment (S x L = {tuple(im._wkeys.shape)}): "
+        f"bit for bit; ms K5 / blocked / blocked / K5: "
+        + " / ".join(f"{x:.2f}" for x in tk)
+        + f"; bounds K5 {b5[0]:.3f} ({b5[1]}), blocked forward {bf[0]:.3f} ({bf[1]}) + "
+        f"backtrace {bb[0]:.3f} ({bb[1]})")
 
 
 # Phase 8, two populations: the joint data's shape is that of
@@ -2673,14 +3172,20 @@ def main():
             frontend_path(w2)
         multirank_path(os.path.join(workdir, "multirank"), files, model_json,
                        os.path.join(workdir, "post.npz"))
+        t0 = time.perf_counter()
+        over_launches, over_records = over_budget_posterior(workdir, model_json)
+        log(f"phase 11 (over-budget posterior): {time.perf_counter() - t0:.1f} s")
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     # K1-K3 and K6 from the estimate path, K2g, K4, K5 and K7 from the
-    # posterior path
+    # posterior path, the over-budget kernels from phase 11's posterior
     for name in ("dsc_sweep_gamma", "viterbi_ops", "viterbi_paths",
                  "viterbi_boundary"):
         launches[name] = post_launches[name]
         records[name] = post_records[name]
+    for k in wk.REMAT_KERNELS:
+        launches[k.name] = over_launches[k.name]
+        records[k.name] = over_records[k.name]
     kernels = []
     for k in wk.KERNELS:
         err, ms, plain_ms, bound_ms, bound_by = records[k.name]

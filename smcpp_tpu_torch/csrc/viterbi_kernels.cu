@@ -151,13 +151,26 @@ __global__ void __launch_bounds__(128) viterbi_ops_kernel(
 // lowest maximizing j, as one chain over all j gives.  Each lane packs four
 // windows' backpointers into one 32-bit word and stores it every fourth
 // window (a warp's 128-byte row of the scratch).
+//
+// Blocked (replaces the block != None branch of
+// smcpp_tpu/ops/window_kernel.py:viterbi_segment_paths, :923-935): a launch
+// walks windows [lb, le) in blocks of blk (a multiple of 4), from V_in (S, M)
+// f32 or, without it, from seg_entry.  Each output is optional: the
+// backpointers of the range (bp, as above with le - lb windows a segment),
+// and the V entering each block, block-major ((le - lb) / blk, S, M) f32.
+// The blocked Viterbi is one launch over [0, L) writing only the snapshots,
+// then one per block from its snapshot writing only its backpointers.  Chunks
+// never cross a block, so a snapshot is taken between two chunks; V is f32
+// and stored unrounded, and the step is unchanged, so every block's
+// backpointers are the whole sweep's, bit for bit.
 // ---------------------------------------------------------------------------
 template <int MB, bool SMEM_E>
 __global__ void __launch_bounds__(128) viterbi_fwd_kernel(
     const float* __restrict__ logT, const float* __restrict__ logE,
     const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
-    const int32_t* __restrict__ seg_entry, int S, int L, int M, int n_keys,
-    uint8_t* __restrict__ bp) {
+    const int32_t* __restrict__ seg_entry, const float* __restrict__ V_in, int S, int L,
+    int M, int n_keys, int lb, int le, int blk, uint8_t* __restrict__ bp,
+    float* __restrict__ snaps) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   int ES;
@@ -172,16 +185,22 @@ __global__ void __launch_bounds__(128) viterbi_fwd_kernel(
   float LTcol[MB];
 #pragma unroll
   for (int j = 0; j < MB; ++j) LTcol[j] = (live && j < M) ? logT[j * M + lane] : -INFINITY;
-  float V = (lane == seg_entry[s]) ? 0.f : MP_NEG;
+  float V = V_in != nullptr ? (live ? V_in[(size_t)s * M + lane] : 0.f)
+                            : ((lane == seg_entry[s]) ? 0.f : MP_NEG);
   const int32_t* kr = keys + (size_t)s * L;
   const uint8_t* vr = valid + (size_t)s * L;
-  uint32_t* bs = reinterpret_cast<uint32_t*>(bp + (size_t)s * bp_windows(L) * M);
+  const int LS = le - lb;
+  uint32_t* bs = bp == nullptr ? nullptr
+                               : reinterpret_cast<uint32_t*>(bp + (size_t)s * bp_windows(LS) * M);
   constexpr int Q = MB / 4;  // length of each of the four runs of j
   int row = 0;
-  uint32_t word = 0;  // four windows' backpointers, window l in byte l % 4
+  uint32_t word = 0;  // four windows' backpointers, window l in byte (l - lb) % 4
 
-  for (int l0 = 0; l0 < L; l0 += 32) {
-    const int nstep = min(32, L - l0);
+  for (int l0 = lb; l0 < le;) {
+    // to the end of l0's block, 32 windows at most
+    const int nstep = min(32, lb + ((l0 - lb) / blk + 1) * blk - l0);
+    if (snaps != nullptr && (l0 - lb) % blk == 0 && live)
+      snaps[((size_t)((l0 - lb) / blk) * S + s) * M + lane] = V;
     int my_key = 0, my_v = 0;
     if (lane < nstep) {
       my_key = kr[l0 + lane];
@@ -237,10 +256,11 @@ __global__ void __launch_bounds__(128) viterbi_fwd_kernel(
       }
       word |= (uint32_t)arg << (8 * (t & 3));
       if ((t & 3) == 3 || t == nstep - 1) {
-        if (live) bs[((l0 + t) >> 2) * M + lane] = word;
+        if (live && bs != nullptr) bs[((l0 - lb + t) >> 2) * M + lane] = word;
         word = 0;
       }
     }
+    l0 += nstep;
   }
 }
 
@@ -252,10 +272,15 @@ __global__ void __launch_bounds__(128) viterbi_fwd_kernel(
 // BACK_RING - 1 blocks ahead of the walk.  Lane 0 walks a block in shared
 // memory (one dependent shared load a window) and writes each window's state
 // into a per-warp row; the warp then stores the row as one coalesced store.
+// Blocked: the walk covers windows [lb, le) from the backpointers of that
+// range, starting from seg_exit as the state after window le - 1, and, when
+// state_out is given, leaves there the state entering window lb (the state
+// after the block before).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(128) viterbi_back_kernel(
-    const int32_t* __restrict__ seg_exit, int S, int L, int M,
-    const uint8_t* __restrict__ bp, int32_t* __restrict__ path) {
+    const int32_t* __restrict__ seg_exit, int S, int L, int M, int lb, int le,
+    const uint8_t* __restrict__ bp, int32_t* __restrict__ path,
+    int32_t* __restrict__ state_out) {
   extern __shared__ float4 smem4[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int blk = 32 * M;  // bytes of one block of 32 windows
@@ -263,13 +288,14 @@ __global__ void __launch_bounds__(128) viterbi_back_kernel(
   int32_t* sPath = reinterpret_cast<int32_t*>(ring + BACK_RING * blk);
   const int s = blockIdx.x * (blockDim.x >> 5) + warp;
   if (s >= S) return;
-  const uint8_t* bs = bp + (size_t)s * bp_windows(L) * M;
-  const bool vec = (bp_windows(L) * M) % 16 == 0;  // every segment starts on 16 bytes
-  const int nblk = (L + 31) / 32;
+  const int LS = le - lb;
+  const uint8_t* bs = bp + (size_t)s * bp_windows(LS) * M;
+  const bool vec = (bp_windows(LS) * M) % 16 == 0;  // every segment starts on 16 bytes
+  const int nblk = (LS + 31) / 32;
 
   auto fetch = [&](int b) {  // block b's bytes into its ring slot; one group
     if (b >= 0) {
-      const int bytes = bp_windows(min(32, L - 32 * b)) * M;  // a multiple of 4
+      const int bytes = bp_windows(min(32, LS - 32 * b)) * M;  // a multiple of 4
       const uint8_t* src = bs + (size_t)b * blk;
       uint8_t* dst = ring + (b % BACK_RING) * blk;
       int done = 0;
@@ -285,12 +311,12 @@ __global__ void __launch_bounds__(128) viterbi_back_kernel(
   for (int k = 0; k < BACK_RING - 1; ++k) fetch(nblk - 1 - k);
 
   int state = seg_exit[s];  // lane 0's walk
-  int32_t* ps = path + (size_t)s * L;
+  int32_t* ps = path + (size_t)s * L + lb;
   for (int b = nblk - 1; b >= 0; --b) {
     fetch(b - (BACK_RING - 1));
     cp_async_wait<BACK_RING - 1>();
     __syncwarp();  // block b's bytes, copied by every lane, are visible to lane 0
-    const int nt = min(32, L - 32 * b);
+    const int nt = min(32, LS - 32 * b);
     const uint8_t* sb = ring + (b % BACK_RING) * blk;
     if (lane == 0) {
       for (int t = nt - 1; t >= 0; --t) {
@@ -301,6 +327,7 @@ __global__ void __launch_bounds__(128) viterbi_back_kernel(
     __syncwarp();  // the row is written; slot b is free for the next fetch
     if (lane < nt) ps[32 * b + lane] = sPath[lane];
   }
+  if (lane == 0 && state_out != nullptr) state_out[s] = state;
 }
 
 }  // namespace
@@ -326,16 +353,24 @@ int smcpp_viterbi_ops(const float* logT, const float* logE, const int32_t* keys,
   return (int)cudaGetLastError();
 }
 
-// K5 launch 1: bp the backpointer scratch, (S, bp_windows(L) / 4, M) uint32
-// words, byte l % 4 of word (l / 4, i) window l's backpointer of state i;
-// seg_entry (S,) int32.
+// K5 launch 1: the forward over windows [lb, le) of keys and valid (S, L),
+// in blocks of blk windows (blk a multiple of 4 dividing le - lb), from V_in
+// (S, M) f32 or, when it is null, from seg_entry (S,) int32.  Outputs, each
+// optional (null): bp, the backpointer scratch, (S, bp_windows(le - lb) / 4,
+// M) uint32 words, byte (l - lb) % 4 of word ((l - lb) / 4, i) window l's
+// backpointer of state i; snaps ((le - lb) / blk, S, M) f32, the V entering
+// each block.  The whole sweep is lb = 0, le = blk = L, snaps null.
 // shared_table is the plan's table route (window_kernel.viterbi_paths_plan);
 // a plan that disagrees with this launch's is refused.
 int smcpp_viterbi_paths_fwd(const float* logT, const float* logE, const int32_t* keys,
-                            const uint8_t* valid, const int32_t* seg_entry, int S,
-                            int L, int M, int n_keys, int shared_table, uint8_t* bp,
+                            const uint8_t* valid, const int32_t* seg_entry,
+                            const float* V_in, int S, int L, int M, int n_keys, int lb,
+                            int le, int blk, int shared_table, uint8_t* bp, float* snaps,
                             void* stream) {
-  if (M < 2 || M > 32 || S <= 0 || L <= 0 || n_keys <= 0) return (int)cudaErrorInvalidValue;
+  if (M < 2 || M > 32 || S <= 0 || L <= 0 || n_keys <= 0 || lb < 0 || le > L ||
+      le <= lb || blk <= 0 || (le - lb) % blk || (blk % 4 && blk != le - lb) ||
+      (seg_entry == nullptr && V_in == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int MBV = padded(M);
   const size_t smem_v = sizeof(float) * 2 * MBV * WARPS_PER_BLOCK;
   const size_t smem = sizeof(float) * (size_t)n_keys * MBV + smem_v;
@@ -345,20 +380,26 @@ int smcpp_viterbi_paths_fwd(const float* logT, const float* logE, const int32_t*
   int e = 0;
   SMCPP_DISPATCH(MBV, {
     e = launch_e(viterbi_fwd_kernel<MB_, true>, viterbi_fwd_kernel<MB_, false>, smem, smem_v,
-                 grid, block, st, logT, logE, keys, valid, seg_entry, S, L, M, n_keys, bp);
+                 grid, block, st, logT, logE, keys, valid, seg_entry, V_in, S, L, M, n_keys,
+                 lb, le, blk, bp, snaps);
   });
   if (e) return e;
   return (int)cudaGetLastError();
 }
 
-// K5 launch 2: path (S, L) int32 from the scratch of launch 1; seg_exit (S,) int32.
-int smcpp_viterbi_paths_back(const int32_t* seg_exit, int S, int L, int M,
-                             const uint8_t* bp, int32_t* path, void* stream) {
-  if (M < 2 || M > 32 || S <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+// K5 launch 2: windows [lb, le) of path (S, L) int32 from the scratch of
+// launch 1 over the same range; seg_exit (S,) int32, the state after window
+// le - 1; state_out (S,) int32, when non-null, the state entering window lb.
+int smcpp_viterbi_paths_back(const int32_t* seg_exit, int S, int L, int M, int lb,
+                             int le, const uint8_t* bp, int32_t* path,
+                             int32_t* state_out, void* stream) {
+  if (M < 2 || M > 32 || S <= 0 || L <= 0 || lb < 0 || le > L || le <= lb)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)back_warp_bytes(M) * WARPS_PER_BLOCK;
   const dim3 grid((S + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK), block(32 * WARPS_PER_BLOCK);
   cudaStream_t st = (cudaStream_t)stream;
-  viterbi_back_kernel<<<grid, block, smem, st>>>(seg_exit, S, L, M, bp, path);
+  viterbi_back_kernel<<<grid, block, smem, st>>>(seg_exit, S, L, M, lb, le, bp, path,
+                                                  state_out);
   return (int)cudaGetLastError();
 }
 

@@ -342,20 +342,26 @@ class _InferenceManager:
 
     def _build_estep_fn(self):
         """The per-window stream policy of the reference
-        (manager.py:_build_estep_fn): the alpha stream (carry dtype, 2 or 4
-        B/window/M) must fit the budget.  Over budget the reference switches
-        to alpha remat, which is not ported yet: this raises.  The emission
-        stream is never needed here (the kernels gather emission rows)."""
+        (manager.py:_build_estep_fn, :909-942): the E-step stores the alpha
+        stream (carry dtype, 2 or 4 B/window/M) while it fits the budget;
+        over it, ``_alpha_remat`` is the block size of alpha remat
+        (``remat_block_size(L)``), which keeps one carry snapshot per block
+        and recomputes each block's alphas.  Called again after
+        ``raise_precision``, so a climb past bf16 (4 B) switches to remat
+        mid-EM.  The emission stream is never needed here (the kernels
+        gather emission rows)."""
+        self._alpha_remat = None
         if not self._use_windows:
             return
         ab = torch.finfo(wk.carry_dtype(self.precision, torch.float32)).bits // 8
         need = self._window_stream_bytes(ab)
         budget = self._hbm_budget()
         if need > budget:
-            raise NotImplementedError(
-                f"the alpha stream ({need / 1e9:.1f} GB) is over the device "
-                f"budget ({budget / 1e9:.1f} GB) and alpha remat is not "
-                "ported yet (ROADMAP B3)"
+            self._alpha_remat = wk.remat_block_size(self._wkeys.shape[1])
+            logger.info(
+                "window streams (%.1f GB/device) over budget (%.1f GB): "
+                "alpha remat ON (block %d)",
+                need / 1e9, budget / 1e9, self._alpha_remat,
             )
 
     # -- precision ladder -------------------------------------------------
@@ -412,7 +418,8 @@ class _InferenceManager:
         if self._use_windows:
             ll, gamma0, xisum, gamma_sums = wk.estep_direct(
                 pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
-                precision=self.precision, mesh=mesh,
+                precision=self.precision, alpha_remat=self._alpha_remat,
+                mesh=mesh,
             )
         else:
             # this rank's contigs; the statistics summed over the ranks in f64
@@ -535,8 +542,7 @@ class _InferenceManager:
         array per contig (manager.py:698-771): when the E-step runs on
         windows, the state at each row's last window through the window
         max-plus kernels, or, over the backpointer budget, with the
-        backpointers streamed per block (plain version only here; on CUDA it
-        raises, ROADMAP B6).  Otherwise (the span kernel, past both window
+        backpointers recomputed per block (K5 blocked on the card).  Otherwise (the span kernel, past both window
         gates, M = 1) the row-level Viterbi (hmm.viterbi_paths) in f64 over
         the packed rows; a split row reports the state at its last
         sub-row's end."""

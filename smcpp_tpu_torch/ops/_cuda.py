@@ -34,22 +34,24 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "window_kernels.cu": {
         "smcpp_segment_ops": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-        "smcpp_asc_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "smcpp_asc_sweep": [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+        ],
         "smcpp_asc_sweep_plan": [_I, _I, _I, _I, _P],
         "smcpp_asc_div_check": [_P, _P, _I, _P, _P],
     },
     "dsc_kernels.cu": {
         "smcpp_dsc_sweep": [
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-            _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P,
         ],
     },
     "viterbi_kernels.cu": {
         "smcpp_viterbi_ops": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
         "smcpp_viterbi_paths_fwd": [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         ],
-        "smcpp_viterbi_paths_back": [_P, _I, _I, _I, _P, _P, _P],
+        "smcpp_viterbi_paths_back": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     },
     "boundary_kernels.cu": {
         "smcpp_boundary_products": [_P, _P, _I, _I, _I, _I, _P, _P],

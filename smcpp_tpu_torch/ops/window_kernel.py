@@ -164,10 +164,29 @@ VITERBI_BOUNDARY = _Kernel(
     "viterbi_boundary", "smcpp_tpu_torch/csrc/boundary_kernels.cu",
     "smcpp_tpu/ops/window_kernel.py:815",
 )
+# the over-budget routes: alpha remat in the E-step, the blocked Viterbi
+ASC_SWEEP_REMAT = _Kernel(
+    "asc_sweep_remat", "smcpp_tpu_torch/csrc/window_kernels.cu",
+    "smcpp_tpu/ops/window_kernel.py:577",
+)
+DSC_SWEEP_RANGE = _Kernel(
+    "dsc_sweep_range", "smcpp_tpu_torch/csrc/dsc_kernels.cu",
+    "smcpp_tpu/ops/window_kernel.py:585",
+)
+VITERBI_FWD_BLOCKED = _Kernel(
+    "viterbi_fwd_blocked", "smcpp_tpu_torch/csrc/viterbi_kernels.cu",
+    "smcpp_tpu/ops/window_kernel.py:928",
+)
+VITERBI_BACK_BLOCKED = _Kernel(
+    "viterbi_back_blocked", "smcpp_tpu_torch/csrc/viterbi_kernels.cu",
+    "smcpp_tpu/ops/window_kernel.py:937",
+)
 ESTEP_KERNELS = (SEGMENT_OPS, ASC_SWEEP, DSC_SWEEP, BOUNDARY_SCAN)
+REMAT_KERNELS = (ASC_SWEEP_REMAT, DSC_SWEEP_RANGE, VITERBI_FWD_BLOCKED,
+                 VITERBI_BACK_BLOCKED)
 KERNELS = ESTEP_KERNELS + (
     DSC_SWEEP_GAMMA, VITERBI_OPS, VITERBI_PATHS, VITERBI_BOUNDARY,
-)
+) + REMAT_KERNELS
 
 
 def check_key_range(keys, n_keys):
@@ -214,6 +233,11 @@ def _check_inputs(T, E, keys, valid, *rows):
 def _stream(device):
     "The current CUDA stream of ``device`` as a C pointer value."
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ptr(x):
+    "A tensor's device pointer, or None (a null pointer) for no tensor."
+    return None if x is None else x.data_ptr()
 
 
 def segment_ops_cuda(T, E, keys, valid, precision):
@@ -289,18 +313,25 @@ def asc_sweep_cuda(T, E, keys, valid, A_in, precision):
     cdt = carry_dtype(precision, torch.float32)
     alphas = torch.empty((S, L, M), dtype=cdt, device=T.device)
     alpha_end = torch.empty((S, M), dtype=torch.float32, device=T.device)
-    lib = _cuda.lib()
     ASC_SWEEP.launches += 1
-    _cuda.check(
-        lib.smcpp_asc_sweep(
-            T.data_ptr(), E.data_ptr(), keys.data_ptr(), valid.data_ptr(),
-            A_in.data_ptr(), S, L, M, E.shape[0],
-            int(cdt == torch.bfloat16), alphas.data_ptr(),
-            alpha_end.data_ptr(), _stream(T.device),
-        ),
-        ASC_SWEEP.name,
-    )
+    _asc_launch(T, E, keys, valid, A_in, cdt, 0, L, L, alphas, None, alpha_end,
+                ASC_SWEEP.name)
     return alphas, alpha_end
+
+
+def _asc_launch(T, E, keys, valid, A_in, cdt, lb, le, blk, alphas, snaps,
+                alpha_end, name):
+    "One launch of K1's kernel over windows [lb, le) (smcpp_asc_sweep)."
+    S, L = keys.shape
+    _cuda.check(
+        _cuda.lib().smcpp_asc_sweep(
+            T.data_ptr(), E.data_ptr(), keys.data_ptr(), valid.data_ptr(),
+            A_in.data_ptr(), S, L, T.shape[0], E.shape[0],
+            int(cdt == torch.bfloat16), lb, le, blk, _ptr(alphas), _ptr(snaps),
+            _ptr(alpha_end), _stream(T.device),
+        ),
+        name,
+    )
 
 
 def asc_sweep_plan(S, M, n_keys, bf16):
@@ -367,19 +398,28 @@ def _dsc_launch(kernel, T, E, keys, valid, alphas, Q_end, gam):
     u_start = torch.empty((S, M), dtype=torch.float32, device=T.device)
     xo_part = torch.empty((G, M, M), dtype=torch.float64, device=T.device)
     gsum_part = torch.empty((G, n_keys, M), dtype=torch.float64, device=T.device)
-    lib = _cuda.lib()
     kernel.launches += 1
-    _cuda.check(
-        lib.smcpp_dsc_sweep(
-            T.data_ptr(), E.data_ptr(), keys.data_ptr(), valid.data_ptr(),
-            alphas.data_ptr(), Q_end.data_ptr(), S, L, M, n_keys,
-            int(alphas.dtype == torch.bfloat16), warps, seg_per_warp, G,
-            u_start.data_ptr(), xo_part.data_ptr(), gsum_part.data_ptr(),
-            None if gam is None else gam.data_ptr(), _stream(T.device),
-        ),
-        kernel.name,
-    )
+    _dsc_call(T, E, keys, valid, alphas, Q_end, None, 0, L, False, u_start, None,
+              xo_part, gsum_part, gam, kernel.name)
     return u_start, xo_part.sum(0), gsum_part.sum(0)
+
+
+def _dsc_call(T, E, keys, valid, alphas, q_in, u_in, lb, le, accumulate,
+              u_out, q_out, xo_part, gsum_part, gam, name):
+    "One launch of K2's kernel over windows [lb, le) (smcpp_dsc_sweep)."
+    S, L = keys.shape
+    M, n_keys = T.shape[0], E.shape[0]
+    warps, seg_per_warp, G = dsc_plan(S, L, n_keys, M)
+    _cuda.check(
+        _cuda.lib().smcpp_dsc_sweep(
+            T.data_ptr(), E.data_ptr(), keys.data_ptr(), valid.data_ptr(),
+            alphas.data_ptr(), q_in.data_ptr(), _ptr(u_in), S, L, M, n_keys, lb, le,
+            int(accumulate), int(alphas.dtype == torch.bfloat16), warps,
+            seg_per_warp, G, u_out.data_ptr(), _ptr(q_out), xo_part.data_ptr(),
+            gsum_part.data_ptr(), _ptr(gam), _stream(T.device),
+        ),
+        name,
+    )
 
 
 def dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end):
@@ -416,6 +456,101 @@ def dsc_sweep_gamma_cuda(T, E, keys, valid, alphas, Q_end):
         DSC_SWEEP_GAMMA, T, E, keys, valid, alphas, Q_end, gam
     )
     return u_start, xo, gsum, gam
+
+
+class AlphaRemat:
+    """Alpha remat on the card (replaces the alpha_remat branch of the JAX
+    package's window_kernel.py:stats_pass, :567-613): K1 in its snapshot
+    and range modes, K2 by block, launch by launch.  Construct it, then call
+    ``snap()``, then for each block b from the last to the first
+    ``asc_block(b)`` and ``dsc_block(b)``, then ``finish()``, on the current
+    stream (``stats_pass_remat_cuda`` does; they are separate so that each
+    can be timed).
+
+      snap()          K1 over all L windows, writing no stream: the carry
+                      entering each block of ``block`` windows, rounded to
+                      the carry dtype, (L / block, S, M), and alpha_end;
+      asc_block(b)    K1 over block b from its snapshot (in f32), writing the
+                      block's (S, block, M) stream into a one-block scratch;
+      dsc_block(b)    K2 over block b from that scratch, the beta carries
+                      (q, u) passed from the block after it, xisum and the
+                      fixed-point gsum added into per-block partials;
+      finish()        the partials summed: (alpha_end (S, M), u_start (S, M),
+                      xo (M, M) f64, gsum (n_keys, M) f64).
+
+    What bounds it: K1's and K2's, plus a second K1 sweep, in 1 + 2 L /
+    block launches: the stream is (S, block, M) a launch, not (S, L, M).
+    The snapshots are rounded to the carry dtype (bf16 at 'default') as the
+    reference's are, so a recomputed block's stream starts from that
+    rounding; alpha_end is the unrounded sweep's.  From the same stream,
+    every window's K2 terms are K2's: gsum's integers sum exactly in any
+    order, so only xisum differs, by the order of its f64 adds across the
+    blocks and, where block or L is not a multiple of 32, by its f32 sums
+    over other 32-window chunks."""
+
+    def __init__(self, T, E, keys, valid, A_in, Q_end, precision, block):
+        _check_inputs(T, E, keys, valid, A_in, Q_end)
+        S, L = keys.shape
+        M, n_keys = T.shape[0], E.shape[0]
+        if block <= 0 or L % block:
+            raise ValueError(f"block {block} must divide L = {L}")
+        dev = T.device
+        self.T, self.E, self.keys, self.valid, self.A_in = T, E, keys, valid, A_in
+        self.block, self.n_blocks = block, L // block
+        self.cdt = carry_dtype(precision, torch.float32)
+        self.snaps = torch.empty((self.n_blocks, S, M), dtype=self.cdt, device=dev)
+        self.alpha_end = torch.empty((S, M), dtype=torch.float32, device=dev)
+        self.alphas = torch.empty((S, block, M), dtype=self.cdt, device=dev)
+        self.q = [Q_end.clone(), torch.empty_like(Q_end)]
+        self.u = [torch.zeros_like(Q_end), torch.empty_like(Q_end)]
+        _, _, G = dsc_plan(S, L, n_keys, M)
+        self.xo_part = torch.zeros((G, M, M), dtype=torch.float64, device=dev)
+        self.gsum_part = torch.zeros((G, n_keys, M), dtype=torch.int64, device=dev)
+
+    def snap(self):
+        "K1 over every window: the snapshots and alpha_end."
+        ASC_SWEEP_REMAT.launches += 1
+        _asc_launch(self.T, self.E, self.keys, self.valid, self.A_in, self.cdt, 0,
+                    self.keys.shape[1], self.block, None, self.snaps, self.alpha_end,
+                    ASC_SWEEP_REMAT.name)
+
+    def asc_block(self, b):
+        "K1 over block b from its snapshot: the block's stream."
+        lb = b * self.block
+        a = self.snaps[b].float()
+        ASC_SWEEP_REMAT.launches += 1
+        _asc_launch(self.T, self.E, self.keys, self.valid, a, self.cdt, lb,
+                    lb + self.block, self.block, self.alphas, None, None,
+                    ASC_SWEEP_REMAT.name)
+
+    def dsc_block(self, b):
+        "K2 over block b from its stream, carrying (q, u) to block b - 1."
+        lb = b * self.block
+        DSC_SWEEP_RANGE.launches += 1
+        _dsc_call(self.T, self.E, self.keys, self.valid, self.alphas, self.q[0],
+                  self.u[0], lb, lb + self.block, True, self.u[1], self.q[1],
+                  self.xo_part, self.gsum_part, None, DSC_SWEEP_RANGE.name)
+        self.q.reverse()
+        self.u.reverse()
+
+    def finish(self):
+        """(alpha_end (S, M), u_start (S, M), xo (M, M) f64, gsum (n_keys, M)
+        f64): the per-block partials summed, gsum's integers scaled by
+        2^-GSUM_FRAC_BITS first (K2's conversion)."""
+        gsum = (self.gsum_part.double() * 2.0**-GSUM_FRAC_BITS).sum(0)
+        return self.alpha_end, self.u[0], self.xo_part.sum(0), gsum
+
+
+def stats_pass_remat_cuda(T, E, keys, valid, A_in, Q_end, precision, block):
+    """stats_pass(alpha_remat=block) on the card: ``AlphaRemat``'s
+    launches, 1 + L / block of K1 (``asc_sweep_remat``) and L / block of K2
+    by block (``dsc_sweep_range``).  Returns (alpha_end, u_start, xo, gsum)."""
+    r = AlphaRemat(T, E, keys, valid, A_in, Q_end, precision, block)
+    r.snap()
+    for b in range(r.n_blocks - 1, -1, -1):
+        r.asc_block(b)
+        r.dsc_block(b)
+    return r.finish()
 
 
 def _check_states(states, S, M, dev):
@@ -490,16 +625,16 @@ class ViterbiPaths:
     """K5's two launches, one at a time: construct it, then call ``fwd()``
     and ``back()`` in order on the current stream (``viterbi_paths_cuda``
     does; they are separate so that each can be timed).  The scratch is
-    ``viterbi_paths_plan``'s; every launch checks its return and raises on
-    failure."""
+    ``viterbi_paths_plan``'s (for ``scratch_windows`` windows a segment,
+    L unless given); every launch checks its return and raises on failure."""
 
-    def __init__(self, T, E, keys, valid, seg_entry, seg_exit):
+    def __init__(self, T, E, keys, valid, seg_entry, seg_exit, scratch_windows=None):
         _check_inputs(T, E, keys, valid)
         S, L = keys.shape
         M = T.shape[0]
         _check_states(seg_entry, S, M, T.device)
         _check_states(seg_exit, S, M, T.device)
-        self.plan = viterbi_paths_plan(S, L, M, E.shape[0])
+        self.plan = viterbi_paths_plan(S, scratch_windows or L, M, E.shape[0])
         self.S, self.L, self.M, self.n_keys = S, L, M, E.shape[0]
         self.keys, self.valid = keys, valid
         self.seg_entry, self.seg_exit = seg_entry, seg_exit
@@ -513,20 +648,28 @@ class ViterbiPaths:
 
     def fwd(self):
         "Launch 1: the forward sweep, writing the backpointer scratch."
-        _cuda.check(self._lib.smcpp_viterbi_paths_fwd(
-            self.logT.data_ptr(), self.logE.data_ptr(), self.keys.data_ptr(),
-            self.valid.data_ptr(), self.seg_entry.data_ptr(), self.S, self.L,
-            self.M, self.n_keys, int(self.plan["shared_table"]), self.bp.data_ptr(),
-            self._stream,
-        ), VITERBI_PATHS.name)
+        self._fwd(None, 0, self.L, self.L, self.bp, None, VITERBI_PATHS.name)
 
     def back(self):
         "Launch 2: the backtrace; returns path (S, L) int32."
-        _cuda.check(self._lib.smcpp_viterbi_paths_back(
-            self.seg_exit.data_ptr(), self.S, self.L, self.M, self.bp.data_ptr(),
-            self.path.data_ptr(), self._stream,
-        ), VITERBI_PATHS.name)
+        self._back(self.seg_exit, 0, self.L, None, VITERBI_PATHS.name)
         return self.path
+
+    def _fwd(self, V_in, lb, le, blk, bp, snaps, name):
+        "The forward kernel over windows [lb, le) (smcpp_viterbi_paths_fwd)."
+        _cuda.check(self._lib.smcpp_viterbi_paths_fwd(
+            self.logT.data_ptr(), self.logE.data_ptr(), self.keys.data_ptr(),
+            self.valid.data_ptr(), self.seg_entry.data_ptr(), _ptr(V_in), self.S,
+            self.L, self.M, self.n_keys, lb, le, blk, int(self.plan["shared_table"]),
+            _ptr(bp), _ptr(snaps), self._stream,
+        ), name)
+
+    def _back(self, state_in, lb, le, state_out, name):
+        "The backtrace kernel over windows [lb, le) (smcpp_viterbi_paths_back)."
+        _cuda.check(self._lib.smcpp_viterbi_paths_back(
+            state_in.data_ptr(), self.S, self.L, self.M, lb, le, self.bp.data_ptr(),
+            self.path.data_ptr(), _ptr(state_out), self._stream,
+        ), name)
 
 
 def viterbi_paths_cuda(T, E, keys, valid, seg_entry, seg_exit):
@@ -556,6 +699,76 @@ def viterbi_paths_cuda(T, E, keys, valid, seg_entry, seg_exit):
     VITERBI_PATHS.launches += 1
     k5.fwd()
     return k5.back()
+
+
+class ViterbiPathsBlocked(ViterbiPaths):
+    """K5 blocked (replaces the block != None branch of the JAX package's
+    window_kernel.py:viterbi_segment_paths, :923-946): K5's two kernels in
+    their range modes, so that the (S, L, M) backpointer stream is never
+    held whole.  Construct it, then call ``fwd_snap()``, then for each block
+    b from the last to the first ``fwd_block(b)`` and ``back_block(b)``, on
+    the current stream (``viterbi_paths_blocked_cuda`` does; they are
+    separate so that each can be timed).
+
+      fwd_snap()     K5's forward over all L windows from the entry states,
+                     writing no backpointers, only the V entering each block
+                     of ``block`` windows, (L / block, S, M) f32;
+      fwd_block(b)   the forward over block b from its snapshot, writing its
+                     backpointers into a one-block scratch (S, block, M)
+                     bytes (``viterbi_paths_plan(S, block, ...)``);
+      back_block(b)  the backtrace over block b from each segment's state
+                     after the block (its exit state for the last), leaving
+                     the state entering it for the block before.
+
+    What bounds it: K5's, plus one more forward: 2 L serial max-plus steps
+    and L backpointer reads per segment.  The snapshots are f32 and
+    unrounded and every step is K5's, so the path equals K5's
+    (``viterbi_paths_cuda``) and ``viterbi_paths_plain`` bit for bit, ties
+    included.  ``block`` must divide L and be a multiple of 4 (four windows'
+    backpointers share a word)."""
+
+    def __init__(self, T, E, keys, valid, seg_entry, seg_exit, block):
+        S, L = keys.shape
+        if block <= 0 or L % block or block % 4:
+            raise ValueError(f"block {block} must be a multiple of 4 dividing L = {L}")
+        self.block, self.n_blocks = block, L // block
+        super().__init__(T, E, keys, valid, seg_entry, seg_exit, scratch_windows=block)
+        self.snaps = torch.empty((self.n_blocks, S, self.M), dtype=torch.float32,
+                                 device=T.device)
+        self.state = [seg_exit.clone(), torch.empty_like(seg_exit)]
+
+    def fwd_snap(self):
+        "The forward over every window, writing the V entering each block."
+        VITERBI_FWD_BLOCKED.launches += 1
+        self._fwd(None, 0, self.L, self.block, None, self.snaps, VITERBI_FWD_BLOCKED.name)
+
+    def fwd_block(self, b):
+        "The forward over block b from its snapshot, writing its backpointers."
+        lb = b * self.block
+        VITERBI_FWD_BLOCKED.launches += 1
+        self._fwd(self.snaps[b], lb, lb + self.block, self.block, self.bp, None,
+                  VITERBI_FWD_BLOCKED.name)
+
+    def back_block(self, b):
+        "The backtrace over block b; returns path (S, L) int32."
+        lb = b * self.block
+        VITERBI_BACK_BLOCKED.launches += 1
+        self._back(self.state[0], lb, lb + self.block, self.state[1],
+                   VITERBI_BACK_BLOCKED.name)
+        self.state.reverse()
+        return self.path
+
+
+def viterbi_paths_blocked_cuda(T, E, keys, valid, seg_entry, seg_exit, block):
+    """K5 blocked: ``ViterbiPathsBlocked``'s launches, 1 + L / block of the
+    forward kernel and L / block of the backtrace.  Returns path (S, L)
+    int32, equal to ``viterbi_paths_cuda``'s."""
+    k5 = ViterbiPathsBlocked(T, E, keys, valid, seg_entry, seg_exit, block)
+    k5.fwd_snap()
+    for b in range(k5.n_blocks - 1, -1, -1):
+        k5.fwd_block(b)
+        k5.back_block(b)
+    return k5.path
 
 
 def _check_boundary_inputs(ops, seg_of_contig):
@@ -913,14 +1126,32 @@ def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, emit_gamma=False,
     M = T.shape[0]
     n_keys = E.shape[0]
     dt = E.dtype
-    tiny = torch.finfo(dt).tiny
-    vnext = torch.cat([valid[:, 1:], torch.zeros_like(valid[:, :1])], 1)
-    q = Q_end.to(dt)
-    u = torch.zeros((S, M), dtype=dt, device=T.device)
     xo = torch.zeros((M, M), dtype=torch.float64, device=T.device)
     gsum = torch.zeros((n_keys, M), dtype=torch.float64, device=T.device)
     gam = torch.empty((S, L, M), dtype=dt, device=T.device) if emit_gamma else None
-    for l in range(L - 1, -1, -1):
+    _, u = _dsc_steps(T, E, keys, valid, _vnext(valid), alphas, Q_end.to(dt),
+                      torch.zeros((S, M), dtype=dt, device=T.device), xo, gsum,
+                      gam, sum_dtype)
+    if emit_gamma:
+        return u, xo, gsum, gam
+    return u, xo, gsum
+
+
+def _vnext(valid):
+    "The valid flag of each window's successor (False after the last)."
+    return torch.cat([valid[:, 1:], torch.zeros_like(valid[:, :1])], 1)
+
+
+def _dsc_steps(T, E, keys, valid, vnext, alphas, q, u, xo, gsum, gam=None,
+               sum_dtype=None):
+    """The descending steps of ``dsc_sweep_plain`` over the windows of keys,
+    valid, vnext and alphas (S, n, ...), last first, from the beta carries
+    (q, u); adds into xo and gsum in place, writes gam[:, l] when given.
+    Returns the carries (q, u) after the first window."""
+    n_keys, M = E.shape
+    dt = E.dtype
+    tiny = torch.finfo(dt).tiny
+    for l in range(keys.shape[1] - 1, -1, -1):
         a = alphas[:, l].to(dt)
         k = keys[:, l]
         v, vn = valid[:, l, None], vnext[:, l, None]
@@ -928,7 +1159,7 @@ def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, emit_gamma=False,
         qun = torch.where(vn, tv, q)
         Z = torch.clamp(torch.sum(a * qun, 1, keepdim=True), min=tiny)
         gamma = (a * qun / Z) * v
-        if emit_gamma:
+        if gam is not None:
             gam[:, l] = gamma
         ascale = (a / Z) * (v & vn)
         g_k = torch.zeros((n_keys, M), dtype=sum_dtype or dt, device=T.device)
@@ -938,9 +1169,40 @@ def dsc_sweep_plain(T, E, keys, valid, alphas, Q_end, emit_gamma=False,
         qn = qun / torch.clamp(torch.amax(qun, 1, keepdim=True), min=tiny)
         q = torch.where(v, qn, q)
         u = torch.where(v, E[k] * q, u)
-    if emit_gamma:
-        return u, xo, gsum, gam
-    return u, xo, gsum
+    return q, u
+
+
+def stats_pass_remat_plain(T, E, keys, valid, A_in, Q_end, precision, block,
+                           sum_dtype=None):
+    """stats_pass(alpha_remat=block) as plain torch (window_kernel.py:567-613):
+    the ascending sweep block by block, keeping only the carry entering each
+    block rounded to the carry dtype; then, block by block from the last,
+    that block's alphas recomputed from its snapshot (``asc_sweep_plain``)
+    and the descending steps over them (``_dsc_steps``), the beta carries
+    and the accumulators passed on.  ``sum_dtype`` is both sweeps' (the
+    kernels' plain version at torch.float64).  Returns (alpha_end, u_start,
+    xo, gsum)."""
+    S, L = keys.shape
+    n_keys, M = E.shape
+    dt = E.dtype
+    cdt = carry_dtype(precision, dt)
+    if block <= 0 or L % block:
+        raise ValueError(f"block {block} must divide L = {L}")
+    blocks = [slice(l0, l0 + block) for l0 in range(0, L, block)]
+    a, snaps = A_in.to(dt), []
+    for b in blocks:
+        snaps.append(a.to(cdt))
+        _, a = asc_sweep_plain(T, E, keys[:, b], valid[:, b], a, precision, sum_dtype)
+    vnext = _vnext(valid)
+    q, u = Q_end.to(dt), torch.zeros((S, M), dtype=dt, device=T.device)
+    xo = torch.zeros((M, M), dtype=torch.float64, device=T.device)
+    gsum = torch.zeros((n_keys, M), dtype=torch.float64, device=T.device)
+    for b, snap in zip(blocks[::-1], snaps[::-1]):
+        alphas, _ = asc_sweep_plain(T, E, keys[:, b], valid[:, b], snap.to(dt),
+                                    precision, sum_dtype)
+        q, u = _dsc_steps(T, E, keys[:, b], valid[:, b], vnext[:, b], alphas, q, u,
+                          xo, gsum, sum_dtype=sum_dtype)
+    return a, u, xo, gsum
 
 
 def _mp_neg(dt, dev):
@@ -1245,19 +1507,25 @@ def stats_pass(T, E, keys, valid, A_in, Q_end, e_all=None, precision=None,
     (L, M, S)) in the compute dtype: each valid window's gamma sums to 1,
     invalid windows hold 0.
 
-    On CUDA tensors: K1 then K2, or K1 then K2g with ``emit_gamma``.  The
-    emission stream ``e_all`` and ``alpha_remat`` are not ported and
-    raise."""
+    ``alpha_remat`` (a block size dividing L, or None): keep only the carry
+    entering each block and recompute each block's alphas during the
+    descending sweep (``stats_pass_remat_cuda``, ``stats_pass_remat_plain``);
+    it excludes ``emit_gamma``, as in the reference.
+
+    On CUDA tensors: K1 then K2, or K1 then K2g with ``emit_gamma``, or
+    alpha remat's launches (``AlphaRemat``).  The emission stream ``e_all``
+    is not ported and raises."""
     if e_all is not None:
         raise NotImplementedError(
-            "stats_pass: the e_all emission stream is not ported (ROADMAP B3); "
-            "the sweeps gather emission rows instead"
-        )
-    if alpha_remat is not None:
-        raise NotImplementedError(
-            "stats_pass: alpha_remat is not ported yet (ROADMAP B3)"
+            "stats_pass: the e_all emission stream is not ported; the sweeps "
+            "gather emission rows instead"
         )
     precision = _precision(precision)
+    if alpha_remat is not None:
+        if emit_gamma:
+            raise ValueError("emit_gamma requires alpha_remat=None")
+        remat = stats_pass_remat_cuda if T.is_cuda else stats_pass_remat_plain
+        return remat(T, E, keys, valid, A_in, Q_end, precision, int(alpha_remat))
     if T.is_cuda:
         alphas, alpha_end = asc_sweep_cuda(T, E, keys, valid, A_in, precision)
         dsc = dsc_sweep_gamma_cuda if emit_gamma else dsc_sweep_cuda
@@ -1314,9 +1582,11 @@ def _boundaries(pi, T, E, keys, valid, seg_of_contig, precision, mesh):
 
 
 def estep_direct(pi, T, E, keys, valid, seg_of_contig, precision=None,
-                 mesh=None):
+                 alpha_remat=None, mesh=None):
     """Direct Baum-Welch E-step (window_kernel.py:estep_direct).  Returns
     (ll, pi-stat, xisum, gamma_sums): ll and the statistics in f64.
+    ``alpha_remat`` is stats_pass's (a block size, or None: the stored
+    alpha stream).
 
     Under a ``mesh`` (parallel/mesh.py; mesh.py:make_sharded_direct_estep)
     keys and valid are this rank's block of the global segment rows and
@@ -1330,6 +1600,7 @@ def estep_direct(pi, T, E, keys, valid, seg_of_contig, precision=None,
     )
     alpha_end, u_start, xo, gsum = stats_pass(
         T, E, keys, valid, A_in, Q_end, precision=precision,
+        alpha_remat=alpha_remat,
     )
     xo, gsum = mesh_mod.reduce_sum(mesh, xo), mesh_mod.reduce_sum(mesh, gsum)
     alpha_end = mesh_mod.gather_rows(mesh, alpha_end)
@@ -1657,15 +1928,13 @@ def viterbi_segment_paths(T, E, keys, valid, seg_entry, seg_exit, block=None):
     """Phase C: each segment's interior MAP path from its boundary states
     (window_kernel.py:viterbi_segment_paths).  Returns path (S, L) int32,
     the state after each window (the reference's (L, S) transposed; padding
-    windows repeat the adjacent state).  K5 on CUDA tensors; the blocked
-    mode (``block``, backpointers recomputed per block) runs only as the
-    plain version."""
+    windows repeat the adjacent state).  K5 on CUDA tensors; with ``block``
+    (backpointers recomputed per block) K5 blocked
+    (``viterbi_paths_blocked_cuda``)."""
     if T.is_cuda:
         if block is not None:
-            raise NotImplementedError(
-                "viterbi_segment_paths: the blocked backpointer mode has no "
-                "CUDA kernel yet (ROADMAP B6)"
-            )
+            return viterbi_paths_blocked_cuda(T, E, keys, valid, seg_entry, seg_exit,
+                                              block)
         return viterbi_paths_cuda(T, E, keys, valid, seg_entry, seg_exit)
     return viterbi_paths_plain(T, E, keys, valid, seg_entry, seg_exit, block)
 

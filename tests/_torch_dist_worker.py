@@ -135,6 +135,11 @@ def run_parallel(mesh):
         out[f"{tag}_decode_ll"], out[f"{tag}_decode"] = _np(ll), _np(g)
         out[f"{tag}_viterbi"] = _np(wk.viterbi_windows(
             *tens, kl, vl, soc, ends, mesh=mesh))
+        if tag == "direct":  # alpha remat through the sharded E-step
+            B = wk.remat_block_size(keys.shape[1])
+            for i, x in enumerate(wk.estep_direct(*tens, kl, vl, soc, alpha_remat=B,
+                                                  mesh=mesh)):
+                out[f"remat_estep{i}"] = _np(x)
     for tag, rng_ in (("mgr_window", (1, 12)), ("mgr_span", (2000, 9000))):
         n, data = manager_data(rng_)
         im = make_manager(data, n, mesh)

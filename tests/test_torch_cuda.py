@@ -55,6 +55,14 @@ that plain version at rtol 1e-5 (alpha_end, the f32 stream) and one bf16 ulp
 still to the default plain version (f32 sums, the reference's) at the same
 tolerances: K1's carry is f32 at every rung, so a flipped bf16 rounding of
 the stream never feeds back into the recursion.
+
+The over-budget modes reuse those kernels' steps over a window range: K1's
+snapshots and block streams must equal K1's own whole stream and K1 on the
+block alone bit for bit (the same arithmetic), and its plain version at
+K1's tolerances; the remat pass (K1 snapshot and range, K2 by block) is
+held to the plain remat pass at K2's tolerances, and at 'highest' (f32
+snapshots) to the stored-stream pass bit for bit but for xisum's order of
+adds; K5 blocked must equal K5 and the plain blocked walk bit for bit.
 """
 
 import numpy as np
@@ -389,8 +397,10 @@ def test_viterbi_windows_cuda_matches_plain(dev):
     # log T and log E come from the card's and the CPU's logf: an ulp apart
     # at most, which can flip a near-tie
     assert float((got == want).double().mean()) >= 0.999
-    with pytest.raises(NotImplementedError, match="B6"):
-        wk.viterbi_windows(*gpu, block=8)
+    # the blocked backpointer mode (K5 blocked): the same paths, bit for bit
+    before = wk.VITERBI_FWD_BLOCKED.launches
+    assert torch.equal(wk.viterbi_windows(*gpu, block=8).cpu(), got)
+    assert wk.VITERBI_FWD_BLOCKED.launches > before
 
 
 def test_estep_direct_cuda_matches_plain(dev):
@@ -408,8 +418,20 @@ def test_estep_direct_cuda_matches_plain(dev):
 
 def test_unsupported_modes_raise_on_cuda(dev):
     T, E, keys, valid, A_in, Q_end = _problem(3, 8, 64, 16, 20, dev)
-    with pytest.raises(NotImplementedError, match="B3"):
-        wk.stats_pass(T, E, keys, valid, A_in, Q_end, alpha_remat=8)
+    with pytest.raises(NotImplementedError, match="e_all"):
+        wk.stats_pass(T, E, keys, valid, A_in, Q_end, e_all=E)
+    with pytest.raises(ValueError, match="emit_gamma"):
+        wk.stats_pass(T, E, keys, valid, A_in, Q_end, alpha_remat=8, emit_gamma=True)
+    # alpha remat is ported: K1 snapshots and ranges, K2 by block
+    before = (wk.ASC_SWEEP_REMAT.launches, wk.DSC_SWEEP_RANGE.launches)
+    got = wk.stats_pass(T, E, keys, valid, A_in, Q_end, precision="highest",
+                        alpha_remat=8)
+    assert (wk.ASC_SWEEP_REMAT.launches - before[0],
+            wk.DSC_SWEEP_RANGE.launches - before[1]) == (1 + 64 // 8, 64 // 8)
+    want = wk.stats_pass(*(x.cpu() for x in (T, E, keys, valid, A_in, Q_end)),
+                         precision="highest", alpha_remat=8)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5, 1e-7)
     # the emit_gamma mode is ported: K1 then K2g
     got = wk.stats_pass(T, E, keys, valid, A_in, Q_end, precision="highest",
                         emit_gamma=True)
@@ -420,6 +442,142 @@ def test_unsupported_modes_raise_on_cuda(dev):
         _close(g, w, 1e-5, 1e-7)
     with pytest.raises(TypeError):
         wk.segment_ops_cuda(T.double(), E.double(), keys, valid, "highest")
+
+
+# --- The over-budget routes: alpha remat (K1 snapshot and range modes, K2 by
+# block) and the blocked K5 -------------------------------------------------
+
+REMAT_SHAPES = [(40, 256, 8), (40, 256, 32), (21, 200, 40), (5, 512, 128)]
+
+
+@pytest.mark.parametrize("S,L,block", REMAT_SHAPES)
+@pytest.mark.parametrize("M", [2, 15, 16, 17, 32])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_asc_sweep_remat_modes_equal_k1(dev, S, L, block, M, precision):
+    """K1's snapshot mode writes, bit for bit, the carry K1 holds entering
+    each block (A_in, then the stream's last window of the block before, in
+    the carry dtype) and K1's alpha_end; its range mode from a snapshot
+    writes the block's stream of K1 launched on that block alone from the
+    same carry, bit for bit; both against the plain forward (f64 sums) at
+    _check_k1's tolerances, the differing entries counted."""
+    T, E, keys, valid, A_in, Q_end = _problem(60, S, L, M, 89, dev)
+    cdt = wk.carry_dtype(precision, torch.float32)
+    alphas, a_end = wk.asc_sweep_cuda(T, E, keys, valid, A_in, precision)
+    r = wk.AlphaRemat(T, E, keys, valid, A_in, Q_end, precision, block)
+    before = wk.ASC_SWEEP_REMAT.launches
+    r.snap()
+    torch.cuda.synchronize()
+    assert wk.ASC_SWEEP_REMAT.launches == before + 1
+    assert r.snaps.dtype == cdt and r.snaps.shape == (L // block, S, M)
+    want = torch.cat([A_in.to(cdt)[None],
+                      alphas[:, block - 1:L - 1:block].transpose(0, 1)])
+    assert torch.equal(r.snaps, want) and torch.equal(r.alpha_end, a_end)
+    s_tol = BF16_ULP if precision == "default" else 1e-5
+    n_diff = 0
+    for b in (0, L // block // 2, L // block - 1):
+        sl = slice(b * block, (b + 1) * block)
+        r.asc_block(b)
+        k, v = keys[:, sl].contiguous(), valid[:, sl].contiguous()
+        a0 = r.snaps[b].float()
+        alone, _ = wk.asc_sweep_cuda(T, E, k, v, a0, precision)
+        torch.cuda.synchronize()
+        assert torch.equal(r.alphas, alone)
+        plain, _ = _k1_plain(T, E, k, v, a0, precision)
+        _close(r.alphas, plain, s_tol, 1e-7)
+        n_diff += int((r.alphas != plain).sum())
+    print(f"asc_sweep_remat: {n_diff} block-stream entries differ from the plain "
+          "version's bits")
+
+
+@pytest.mark.parametrize("S,L,block", REMAT_SHAPES)
+@pytest.mark.parametrize("M", [2, 15, 16, 17, 32])
+@pytest.mark.parametrize("precision,rtol", [("highest", 1e-5), ("default", 1e-3)])
+def test_remat_stats_pass_matches_plain(dev, S, L, block, M, precision, rtol):
+    """stats_pass(alpha_remat=block) on the card (K1 snapshot, then per block
+    K1 range and K2 by block) against the plain remat pass (f64 sums) at
+    K2's tolerances; gsum sums to the valid windows.  At 'highest' the
+    snapshots are f32, so the pass equals the stored-stream K1 + K2 on the
+    card: alpha_end, u_start and gsum bit for bit, and xo to the order of
+    its f64 sums where the blocks' 32-window chunks are the whole sweep's
+    (block and L multiples of 32; elsewhere its f32 chunk sums group other
+    windows, rtol 1e-5)."""
+    T, E, keys, valid, A_in, Q_end = _problem(61, S, L, M, 89, dev)
+    before = (wk.ASC_SWEEP_REMAT.launches, wk.DSC_SWEEP_RANGE.launches)
+    got = wk.stats_pass(T, E, keys, valid, A_in, Q_end, precision=precision,
+                        alpha_remat=block)
+    torch.cuda.synchronize()
+    nb = L // block
+    assert (wk.ASC_SWEEP_REMAT.launches - before[0],
+            wk.DSC_SWEEP_RANGE.launches - before[1]) == (1 + nb, nb)
+    want = wk.stats_pass_remat_plain(T, E, keys, valid, A_in, Q_end, precision,
+                                     block, sum_dtype=torch.float64)
+    for name, g, w, atol in zip(("alpha_end", "u_start", "xo", "gsum"), got, want,
+                                (1e-7, 1e-7, 1e-8, 1e-8)):
+        assert g.shape == w.shape, name
+        _close(g, w, rtol, atol)
+    nv = float(valid.sum())
+    assert abs(float(got[3].sum()) - nv) <= 1e-6 * max(nv, 1.0)
+    again = wk.stats_pass(T, E, keys, valid, A_in, Q_end, precision=precision,
+                          alpha_remat=block)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    if precision == "highest":
+        full = wk.stats_pass(T, E, keys, valid, A_in, Q_end, precision=precision)
+        for i in (0, 1, 3):
+            assert torch.equal(got[i], full[i])
+        aligned = block % 32 == 0 and L % 32 == 0
+        _close(got[2], full[2], 1e-12 if aligned else 1e-5, 1e-15 if aligned else 1e-8)
+
+
+@pytest.mark.parametrize("M", [2, 15, 32])
+def test_remat_estep_direct_matches_plain(dev, M):
+    T, E, keys, valid, _, _ = _problem(62, 64, 512, M, 89, dev)
+    soc = np.arange(64).reshape(4, 16)
+    pi = torch.full((M,), 1 / M, dtype=torch.float32, device=dev)
+    got = wk.estep_direct(pi, T, E, keys, valid, soc, precision="default",
+                          alpha_remat=wk.remat_block_size(512))
+    want = wk.estep_direct(pi.cpu(), T.cpu(), E.cpu(), keys.cpu(), valid.cpu(), soc,
+                           precision="default", alpha_remat=wk.remat_block_size(512))
+    for g, w in zip(got, want):
+        _close(g, w, 1e-3, 1e-8)
+
+
+def _check_k5_blocked(T, E, keys, valid, entry, exit_, block):
+    """K5 blocked equals K5 and viterbi_paths_plain(block=) bit for bit, with
+    1 + L / block forward launches and L / block backtraces."""
+    L = keys.shape[1]
+    path = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
+    before = (wk.VITERBI_FWD_BLOCKED.launches, wk.VITERBI_BACK_BLOCKED.launches)
+    got = wk.viterbi_segment_paths(T, E, keys, valid, entry, exit_, block=block)
+    torch.cuda.synchronize()
+    assert (wk.VITERBI_FWD_BLOCKED.launches - before[0],
+            wk.VITERBI_BACK_BLOCKED.launches - before[1]) == (1 + L // block, L // block)
+    assert torch.equal(got, path)
+    assert torch.equal(got, wk.viterbi_paths_plain(T, E, keys, valid, entry, exit_,
+                                                   block=block))
+
+
+@pytest.mark.parametrize("L,block", [(256, 8), (256, 32), (200, 40), (512, 128)])
+@pytest.mark.parametrize("M", MS)
+def test_viterbi_paths_blocked_equals_k5(dev, M, L, block):
+    T, E, keys, valid, _, _ = _problem(63, 40, L, M, 89, dev)
+    entry, exit_ = _states(64, 40, M, dev)
+    _check_k5_blocked(T, E, keys, valid, entry, exit_, block)
+
+
+@pytest.mark.parametrize("M", MS)
+def test_viterbi_paths_blocked_ties(dev, M):
+    "Exact ties (tests/_viterbi_ties.py): the lowest maximizing state, per block too."
+    T, E, keys, valid, entry, exit_ = _tie_problem(65, 13, 200, M, 7, 0, M - 1, dev)
+    _check_k5_blocked(T, E, keys, valid, entry, exit_, 40)
+
+
+def test_viterbi_paths_blocked_rejects_a_bad_block(dev):
+    T, E, keys, valid, _, _ = _problem(66, 8, 200, 16, 20, dev)
+    entry, exit_ = _states(67, 8, 16, dev)
+    for block in (6, 30, 0):
+        with pytest.raises(ValueError, match="block"):
+            wk.viterbi_paths_blocked_cuda(T, E, keys, valid, entry, exit_, block)
 
 
 # --- K1: 16 segments per warp on the f64 tensor cores (window_kernels.cu) --

@@ -127,24 +127,24 @@ def test_gate_decisions_match_jax(monkeypatch):
 
 
 def test_alpha_stream_gate_matches_jax(monkeypatch, caplog):
-    """Over the budget the JAX E-step turns alpha remat on; the port, which
-    has no alpha remat yet (ROADMAP B3), raises at the same budget."""
+    """Over the budget both E-steps turn alpha remat on, with the same block
+    and the same log line; within it neither does."""
     jim, tim = _managers([_data(14)])
     need = tim._window_stream_bytes(
         torch.finfo(twk.carry_dtype(tim.precision, torch.float32)).bits // 8
     )
     assert need == jim._window_stream_bytes(jim._alpha_carry_bytes())
+    block = jwk.remat_block_size(tim._wkeys.shape[1])
     for budget, over in ((need * 1.01, False), (need * 0.99, True)):
         monkeypatch.setenv("SMCPP_TPU_ESTREAM_BYTES", repr(budget))
-        caplog.clear()
-        with caplog.at_level(logging.INFO, logger="smcpp_tpu.inference.manager"):
-            jim._build_estep_fn()
-        assert ("alpha remat ON" in caplog.text) == over
-        if over:
-            with pytest.raises(NotImplementedError, match="B3"):
-                tim._build_estep_fn()
-        else:
-            tim._build_estep_fn()
+        for logger, im in (("smcpp_tpu.inference.manager", jim),
+                           ("smcpp_tpu_torch.inference.manager", tim)):
+            caplog.clear()
+            with caplog.at_level(logging.INFO, logger=logger):
+                im._build_estep_fn()
+            assert ("alpha remat ON" in caplog.text) == over
+            assert (f"alpha remat ON (block {block})" in caplog.text) == over
+        assert tim._alpha_remat == (block if over else None)
 
 
 @pytest.mark.parametrize(

@@ -133,7 +133,7 @@ def test_balanced_fallback_matches_jax(smc_files, monkeypatch):
         np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-6 * np.abs(j).max())
 
 
-def test_span_kernel_choice_raises(smc_files, monkeypatch):
+def test_span_kernel_choice_runs_and_matches_jax(smc_files, monkeypatch):
     """When the cost model picks the span kernel (forced on both sides) the
     port runs it (ops/hmm.py; it raised before the span kernel was ported):
     the stage-2 set-up's E-step agrees with JAX's, at the window E-step's

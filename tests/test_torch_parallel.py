@@ -156,6 +156,20 @@ def test_sharded_direct_estep(ranks, tag, e_stream):
     _stats_close(got, _jax_direct(prob, e_stream=e_stream))
 
 
+def test_sharded_direct_estep_alpha_remat(ranks):
+    """Alpha remat through the sharded E-step (tests/test_window_kernel.py:
+    test_sharded_direct_estep_alpha_remat): each rank's remat stats_pass on
+    its block, against the port's one-process remat E-step, the sharded
+    stored-stream E-step and JAX's sharded remat E-step."""
+    prob, tens = _window("direct")
+    B = twk.remat_block_size(prob[3].shape[1])
+    got = [ranks[f"remat_estep{i}"] for i in range(4)]
+    _stats_close(got, [x.numpy() for x in twk.estep_direct(*tens, prob[5],
+                                                          alpha_remat=B)])
+    _stats_close(got, [ranks[f"direct_estep{i}"] for i in range(4)], 1e-12, 1e-11)
+    _stats_close(got, _jax_direct(prob, alpha_remat=B))
+
+
 def test_sharded_window_decode(ranks):
     """Rows straddle the ranks' blocks: each rank's part by a prefix-sum
     difference, summed over the ranks."""

@@ -180,13 +180,20 @@ def test_estep_direct_large_key_table():
 
 
 def test_unported_modes_raise():
+    """The e_all emission stream is not ported (the kernels gather emission
+    rows) and raises.  Alpha remat is ported: at 'highest' its snapshots
+    are exact, so on the CPU it repeats the stored-stream pass bit for bit
+    (tests/test_torch_remat.py holds it to JAX's)."""
     _, T, E, keys, valid, A_in, Q_end = map(
         torch.as_tensor, _problem(5, 4, 64, 16, 20, np.float32)
     )
-    with pytest.raises(NotImplementedError, match="B3"):
+    with pytest.raises(NotImplementedError, match="e_all"):
         twk.stats_pass(T, E, keys, valid, A_in, Q_end, e_all=E)
-    with pytest.raises(NotImplementedError, match="B3"):
-        twk.stats_pass(T, E, keys, valid, A_in, Q_end, alpha_remat=8)
+    full = twk.stats_pass(T, E, keys, valid, A_in, Q_end, precision="highest")
+    remat = twk.stats_pass(T, E, keys, valid, A_in, Q_end, precision="highest",
+                           alpha_remat=8)
+    for r, f in zip(remat, full):
+        assert torch.equal(r, f)
     # the emit_gamma mode is ported: the stream is (S, L, M), one posterior
     # per window that sums to 1 where the window is valid
     *_, gam = twk.stats_pass(T, E, keys, valid, A_in, Q_end, emit_gamma=True)
