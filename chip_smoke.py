@@ -108,8 +108,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    of their own) through ``posterior --device cuda --map --intervals`` with
    phase 4's model, at the defaults, with no ``SMCPP_TPU_ESTREAM_BYTES``:
    the card's own budget turns on alpha remat in the E-step (K1's snapshot
-   and range modes, K2 by block) and the blocked Viterbi (K5's blocked
-   forward and backtrace), and the decode goes row level; the gate figures,
+   mode, then K8 remat_sweep: each block recomputed from its snapshot in
+   shared memory and descended, one launch a pass) and the blocked Viterbi
+   (K5's blocked forward and backtrace), and the decode goes row level; the gate figures,
    the manager's log line, the launches and every file's npz are checked;
    the wall time, the peak device memory and the routes' phases printed
    (``over_budget_phases``); on the manager's first 32 segments each new
@@ -183,8 +184,8 @@ with a renormalisation at every step), so ``library_ms`` is null.
 
 The line before the last is the kernels' JSON record (launches from each
 kernel's own path: K1-K3 and K6 from phase 4's estimate, K2g, K4, K5 and K7
-from phase 5's posterior, the over-budget modes of K1, K2 and K5 from phase
-11's; errors, times and bounds from the comparison on that path's own
+from phase 5's posterior, K1's snapshot mode, K8 and K5's blocked modes
+from phase 11's; errors, times and bounds from the comparison on that path's own
 inputs, for K5 the whole posterior contig, for the over-budget modes phase
 11's first 32 segments, each time one pass's launches of the kernel); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -282,11 +283,15 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False, block
     The over-budget routes, per remat E-step or blocked Viterbi (``block``
     windows a block, nb = L / block):
 
-      K1 asc_sweep_remat   two sweeps (the snapshots', the blocks'): 2 M^2
-                           f64 FMA per valid window; keys and valid read
-                           twice, the (nb, S, M) snapshots written and
-                           read, the block streams written
-      K2 dsc_sweep_range   K2's, the block streams read
+      K1 asc_sweep_remat   the snapshot sweep: K1's M^2 f64 FMA per valid
+                           window; keys, valid and A_in read, the (nb, S,
+                           M) snapshots and alpha_end written
+      K8 remat_sweep       the function's work, whatever K8 recomputes: one
+                           recompute sweep (M^2 f64 FMA per valid window on
+                           the tensor cores) beside the descent (K2's 2 M^2
+                           f32 FMA and M^2 f64 add); keys, valid, the
+                           snapshots and Q_end read, u_start, xisum and
+                           gsum written
       K5 viterbi_fwd_blocked  two forward sweeps of K5's candidates; keys and
                            valid read twice, the (nb, S, M) f32 snapshots
                            written and read, the (S, L, M) int8
@@ -318,10 +323,12 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False, block
         f32, b = nv * M * M, b + 4 * W + 8 * S
         alu = (2 if alu_at_fma else 3) * nv * M * M
     elif name == "asc_sweep_remat":
-        snaps = 2 * (W // block) * M * elt  # (nb, S, M), written and read
-        return _roofline(0, 0, 2 * b + snaps + W * M * elt + 8 * S * M, 2 * nv * M * M)
-    elif name == "dsc_sweep_range":
-        return bound("dsc_sweep", E, keys, valid, elt)
+        snaps = (W // block) * M * elt  # (nb, S, M) written
+        return _roofline(0, 0, b + snaps + 12 * S * M, nv * M * M)
+    elif name == "remat_sweep":
+        f32, f64 = 2 * nv * M * M, nv * M * M
+        b += (W // block) * M * elt + 8 * S * M + 8 * (M * M + n_keys * M)
+        return _roofline(f32, f64, b, nv * M * M)
     elif name == "viterbi_fwd_blocked":
         f32, alu = 2 * nv * M * M, 2 * 3 * nv * M * M
         b = 2 * b + 2 * 4 * (W // block) * M + W * M + 8 * S
@@ -1798,8 +1805,8 @@ def over_budget_posterior(workdir, model_json):
     model picked windows, the gate figures (alpha stream over the budget:
     alpha remat at remat_block_size(L); the decode over 70% of the card: row
     level; the backpointers over the budget: the blocked Viterbi), the
-    manager's log line, the launches (K3, K6, K1 snapshot and range, K2 by
-    block; K6 in the row decode; K4, K7, K5 blocked forward and backtrace;
+    manager's log line, the launches (K3, K6, K1 snapshot, K8 remat_sweep
+    once; K6 in the row decode; K4, K7, K5 blocked forward and backtrace;
     no whole-stream K1, K2, K2g or K5) and every file's npz; prints the wall
     time, the peak device memory and the phases of the remat E-step and
     the blocked Viterbi (``over_budget_phases``).  Then on the manager's
@@ -1872,8 +1879,8 @@ def over_budget_posterior(workdir, model_json):
     if gates["blocked Viterbi"][0] > budget:
         raise AssertionError("posterior [genome]: the blocked Viterbi is over budget too")
     nb = L // B
-    want = {"segment_ops": 1, "boundary_scan": 2, "asc_sweep_remat": 1 + nb,
-            "dsc_sweep_range": nb, "viterbi_ops": 1, "viterbi_boundary": 1,
+    want = {"segment_ops": 1, "boundary_scan": 2, "asc_sweep_remat": 1,
+            "remat_sweep": 1, "viterbi_ops": 1, "viterbi_boundary": 1,
             "viterbi_fwd_blocked": 1 + nb, "viterbi_back_blocked": nb}
     if launches != want:
         raise AssertionError(f"posterior [genome] launches {launches}, want {want} "
@@ -1889,8 +1896,8 @@ def over_budget_posterior(workdir, model_json):
 
 def over_budget_phases(im, pi, T, E):
     """CUDA-event milliseconds of the phases of the manager's remat E-step
-    (K3, K6, K1 snapshot, the blocks' K1 range and K2 by block summed,
-    ``boundary_stats``) and of its blocked Viterbi (K4, K7, K5's snapshot
+    (K3, K6, K1 snapshot, K8, ``boundary_stats``), with K8's launch plan
+    (registers, spills, residency), and of its blocked Viterbi (K4, K7, K5's snapshot
     forward, the blocks' forward and backtrace summed), each beside its
     bound.  Returns K7's (seg_entry, seg_exit)."""
     import torch
@@ -1923,9 +1930,7 @@ def over_budget_phases(im, pi, T, E):
     del ops
     r = wk.AlphaRemat(T, E, keys, valid, A_in.contiguous(), Q_end.contiguous(), prec, B)
     timed(t, "asc_sweep_remat snapshots (K1)", r.snap)
-    for b in range(r.n_blocks - 1, -1, -1):
-        timed(t, "asc_sweep_remat blocks (K1)", lambda: r.asc_block(b))
-        timed(t, "dsc_sweep_range (K2)", lambda: r.dsc_block(b))
+    timed(t, "remat_sweep (K8)", r.sweep)
     a_end, u, xo, _ = timed(t, "finish", r.finish)
     timed(t, "boundary_stats", lambda: wk.boundary_stats(pi, T, a_end, u, xo, soc, cvalid))
     del r
@@ -1937,12 +1942,12 @@ def over_budget_phases(im, pi, T, E):
     log_bounds("remat E-step", te, {
         "segment_ops (K3)": k3_bound(E, keys, valid),
         "contig_boundaries (K6)": scan_bound("boundary_scan", M, S, soc),
-        "asc_sweep_remat snapshots (K1)": bound("asc_sweep", E, keys, valid, 0),
-        "dsc_sweep_range (K2)": bound("dsc_sweep_range", E, keys, valid, elt),
+        "asc_sweep_remat snapshots (K1)": bound("asc_sweep_remat", E, keys, valid, elt,
+                                                block=B),
+        "remat_sweep (K8)": bound("remat_sweep", E, keys, valid, elt, block=B),
     })
-    k1 = te["asc_sweep_remat snapshots (K1)"] + te["asc_sweep_remat blocks (K1)"]
-    b1 = bound("asc_sweep_remat", E, keys, valid, elt, block=B)
-    log(f"  asc_sweep_remat (K1, both modes) {k1:.3f} ms / bound {b1[0]:.4f} ({b1[1]})")
+    log(f"  remat_sweep (K8) plan: {wk.remat_plan(S, L, M, E.shape[0], elt == 2, B)}; "
+        f"on the card: {wk.remat_sweep_plan(S, M, E.shape[0], elt == 2)}")
 
     t = {}
     W = timed(t, "viterbi_ops (K4)", lambda: wk.viterbi_ops_cuda(T, E, keys, valid))
@@ -1971,104 +1976,129 @@ def over_budget_phases(im, pi, T, E):
 
 
 def compare_remat(im, pi, T, E, entry, exit_, n_seg=32):
-    """The new kernels against their plain versions on the over-budget
-    manager's first ``n_seg`` segments, at its rung and remat block, from
-    the boundary vectors K3 and K6 give and K7's states: K1's snapshots
-    equal K1's whole stream at the block ends bit for bit and its block
-    streams K1 on the block alone; both against the plain forward (f64
-    sums: ``k1_plain``) at K1's tolerances, the differing entries counted;
-    the remat pass (K1 snapshot and range, K2 by block) against the plain
-    descending steps (f64 sums) over the plain block streams, the plain
-    remat pass (``stats_pass_remat_plain``), at K2's tolerances; the
-    remat E-step against the stored-stream E-step on the same segments (ll
-    rtol 1e-6, statistics rtol 1e-2 / atol 1e-6: tests/test_decode.py's);
-    K5 blocked equal to K5 and to ``viterbi_paths_plain(block=)`` bit for
-    bit.  Returns {name: (max abs err, ms, plain ms, bound ms, bound by)}
-    of the four kernels, each ms one E-step's or Viterbi's launches of it."""
+    """The over-budget kernels against their plain versions on the manager's
+    first ``n_seg`` segments, at its remat block, from the boundary vectors
+    K3 and K6 give and K7's states, at both rungs ('default', the manager's,
+    and 'highest'): K1's snapshots equal K1's whole stream at the block ends
+    bit for bit, and the plain forward's (f64 sums: ``k1_plain``) at K1's
+    tolerances, the differing entries counted; the remat pass (K1 snapshot,
+    then K8) against the plain remat pass (``stats_pass_remat_plain``, f64
+    sums) at K2's tolerances (rtol 1e-5 at 'highest', 1e-3 at 'default'),
+    or, where that f32-summed pass has drifted past them at 'highest' (as in
+    ``check_k1``), no farther than it from the exact pass (f64 throughout),
+    with the stored route's distance printed beside; two passes
+    bit-identical; at the manager's rung the remat E-step
+    against the stored-stream E-step on the same segments (ll rtol 1e-6,
+    statistics rtol 1e-2 / atol 1e-6: tests/test_decode.py's); K5 blocked
+    equal to K5 and to ``viterbi_paths_plain(block=)`` bit for bit.  Returns
+    {name: (max abs err, ms, plain ms, bound ms, bound by)} of the four
+    kernels, each ms one E-step's or Viterbi's launches of it, at the
+    manager's rung."""
     import torch
 
     from smcpp_tpu_torch.ops import window_kernel as wk
 
-    prec, B = im.precision, im._alpha_remat
+    B = im._alpha_remat
     sl = slice(0, n_seg)
     keys, valid = im._wkeys[sl].contiguous(), im._wvalid[sl].contiguous()
     soc = np.arange(n_seg)[None]  # the first segments are the first contig's
     S, L = keys.shape
-    ops, logs = wk.segment_operators(T, E, keys, valid, prec)
-    _, A_in, Q_end, _ = wk.contig_boundaries(pi, ops, logs, soc, torch.any(valid, 1))
-    A_in, Q_end = A_in.contiguous(), Q_end.contiguous()
-    cdt = wk.carry_dtype(prec, torch.float32)
+    found = {}
+    for prec in dict.fromkeys((im.precision, "highest", "default")):
+        ops, logs = wk.segment_operators(T, E, keys, valid, prec)
+        _, A_in, Q_end, _ = wk.contig_boundaries(pi, ops, logs, soc, torch.any(valid, 1))
+        A_in, Q_end = A_in.contiguous(), Q_end.contiguous()
+        cdt = wk.carry_dtype(prec, torch.float32)
+        tag = (f"over-budget path, first {n_seg} segments: S x L = {(S, L)}, M = "
+               f"{T.shape[0]}, {E.shape[0]} keys, rung {prec!r}, block {B}")
+        s_tol = BF16_ULP if cdt == torch.bfloat16 else HIGHEST_RTOL
+        rtol = DEFAULT_RTOL if prec == "default" else HIGHEST_RTOL
+
+        # K1's snapshot mode
+        r = wk.AlphaRemat(T, E, keys, valid, A_in, Q_end, prec, B)
+        r.snap()
+        al, ae = wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec)
+        want = torch.cat([A_in.to(cdt)[None], al[:, B - 1:L - 1:B].transpose(0, 1)])
+        if not (torch.equal(r.snaps, want) and torch.equal(r.alpha_end, ae)):
+            raise AssertionError(f"asc_sweep_remat [{tag}]: snapshots differ from K1's "
+                                 "stream")
+        t0 = time.perf_counter()
+        al_p, ae_p = k1_plain(T, E, keys, valid, A_in, prec)
+        torch.cuda.synchronize()
+        k1p = (time.perf_counter() - t0) * 1e3
+        snaps_p = torch.cat([A_in.to(cdt)[None], al_p[:, B - 1:L - 1:B].transpose(0, 1)])
+        del al, al_p
+        e1 = check_close(f"asc_sweep_remat [{tag}] snapshots", r.snaps, snaps_p, s_tol,
+                         1e-7)
+        check_close(f"asc_sweep_remat [{tag}] alpha_end", r.alpha_end, ae_p,
+                    HIGHEST_RTOL, 1e-7)
+        n_diff = int((r.snaps != snaps_p).sum()) + int((r.alpha_end != ae_p).sum())
+        log(f"asc_sweep_remat [{tag}]: snapshots bit for bit K1's stream; {n_diff} of "
+            f"{r.snaps.numel() + r.alpha_end.numel()} entries differ from the plain "
+            "version's bits")
+
+        # K8 against the plain remat pass
+        r.sweep()
+        got = r.finish()
+        again = wk.stats_pass_remat_cuda(T, E, keys, valid, A_in, Q_end, prec, B)
+        for name, g, a in zip(("alpha_end", "u_start", "xo", "gsum"), got, again):
+            check_equal(f"remat_sweep [{tag}] {name}, two passes", g, a)
+        t0 = time.perf_counter()
+        want = wk.stats_pass_remat_plain(T, E, keys, valid, A_in, Q_end, prec, B,
+                                         sum_dtype=torch.float64)
+        torch.cuda.synchronize()
+        k8p = (time.perf_counter() - t0) * 1e3
+        names = ("alpha_end", "u_start", "xo", "gsum")
+        e2, rel, missed = 0.0, {}, {}
+        for name, g, w, atol in zip(names, got, want, (1e-7, 1e-7, 1e-8, 1e-8)):
+            try:
+                err = check_close(f"remat stats_pass [{tag}] {name}", g, w, rtol,
+                                  atol * float(w.abs().max()) if name in ("xo", "gsum")
+                                  else atol)
+            except AssertionError as miss:
+                if cdt == torch.bfloat16 or name == "alpha_end":
+                    raise
+                missed[name] = miss
+                err = float((g.double() - w.double()).abs().max())
+            rel[name] = _rel_dist(g, w)
+            if name != "alpha_end":
+                e2 = max(e2, err)
+        nv = float(valid.sum())
+        if abs(float(got[3].sum()) - nv) > 1e-6 * nv:
+            raise AssertionError(f"remat stats_pass [{tag}]: sum(gsum) != valid windows")
+        vs = ""
+        if missed:
+            # the plain pass sums T u in f32 (torch's order): over a near-identity T
+            # and 16384 windows its rounding accumulates (check_k1's case), so K8
+            # must lie no farther than it from the exact pass (f64 throughout);
+            # the stored route's K2 (an f32 FMA chain) is measured beside them
+            exact = wk.stats_pass_remat_plain(T.double(), E.double(), keys, valid,
+                                              A_in.double(), Q_end.double(), "highest", B)
+            stored = wk.stats_pass(T, E, keys, valid, A_in, Q_end, precision=prec)
+            dist = {}
+            for i, name in enumerate(names):
+                if name not in missed:
+                    continue
+                d = [_rel_dist(y[i], exact[i]) for y in (got, want, stored)]
+                dist[name] = d
+                if d[0] > d[1]:
+                    raise AssertionError(
+                        f"{missed[name]}; and K8 lies farther from the exact pass "
+                        f"({d[0]:.3e}) than the plain pass ({d[1]:.3e})") from missed[name]
+            vs = ("; past tolerance of the plain pass in " + ", ".join(missed)
+                  + ", and nearer the exact pass (f64 throughout; max relative "
+                  "distance K8 / plain pass / stored K1 + K2: " + ", ".join(
+                      f"{n} {d[0]:.3e} / {d[1]:.3e} / {d[2]:.3e}" for n, d in dist.items())
+                  + ")")
+        log(f"remat_sweep [{tag}]: two passes bit for bit; against the plain remat pass "
+            "(f64 per-key sums), largest |got - want| / |want|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + vs)
+        found[prec] = (e1, e2, k1p, k8p, A_in, Q_end)
+
+    # the remat E-step against the stored-stream E-step, at the manager's rung
+    prec = im.precision
     tag = (f"over-budget path, first {n_seg} segments: S x L = {(S, L)}, M = "
            f"{T.shape[0]}, {E.shape[0]} keys, rung {prec!r}, block {B}")
-    s_tol = BF16_ULP if cdt == torch.bfloat16 else HIGHEST_RTOL
-    rtol = DEFAULT_RTOL if prec == "default" else HIGHEST_RTOL
-
-    # K1: snapshots and blocks
-    r = wk.AlphaRemat(T, E, keys, valid, A_in, Q_end, prec, B)
-    r.snap()
-    al, ae = wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec)
-    want = torch.cat([A_in.to(cdt)[None], al[:, B - 1:L - 1:B].transpose(0, 1)])
-    if not (torch.equal(r.snaps, want) and torch.equal(r.alpha_end, ae)):
-        raise AssertionError(f"asc_sweep_remat [{tag}]: snapshots differ from K1's stream")
-    t0 = time.perf_counter()
-    al_p, ae_p = k1_plain(T, E, keys, valid, A_in, prec)
-    torch.cuda.synchronize()
-    k1p = time.perf_counter() - t0
-    snaps_p = torch.cat([A_in.to(cdt)[None], al_p[:, B - 1:L - 1:B].transpose(0, 1)])
-    del al, al_p
-    e1 = check_close(f"asc_sweep_remat [{tag}] snapshots", r.snaps, snaps_p, s_tol, 1e-7)
-    check_close(f"asc_sweep_remat [{tag}] alpha_end", r.alpha_end, ae_p, HIGHEST_RTOL, 1e-7)
-    n_diff = int((r.snaps != snaps_p).sum()) + int((r.alpha_end != ae_p).sum())
-    n_all = r.snaps.numel() + r.alpha_end.numel()
-    blocks_p = {}
-    for b in range(r.n_blocks - 1, -1, -1):
-        bs = slice(b * B, (b + 1) * B)
-        r.asc_block(b)
-        k, v, a0 = keys[:, bs].contiguous(), valid[:, bs].contiguous(), r.snaps[b].float()
-        if b in (0, r.n_blocks - 1) and not torch.equal(
-                r.alphas, wk.asc_sweep_cuda(T, E, k, v, a0, prec)[0]):
-            raise AssertionError(f"asc_sweep_remat [{tag}]: block {b}'s stream differs "
-                                 "from K1 on the block alone")
-        t0 = time.perf_counter()
-        blk_p, _ = k1_plain(T, E, k, v, a0, prec)
-        torch.cuda.synchronize()
-        k1p += time.perf_counter() - t0
-        blocks_p[b] = blk_p
-        e1 = max(e1, check_close(f"asc_sweep_remat [{tag}] block {b}", r.alphas, blk_p,
-                                 s_tol, 1e-7))
-        n_diff += int((r.alphas != blk_p).sum())
-        n_all += blk_p.numel()
-        r.dsc_block(b)
-    got = r.finish()
-    log(f"asc_sweep_remat [{tag}]: snapshots bit for bit K1's stream, blocks K1's on "
-        f"each block; {n_diff} of {n_all} entries differ from the plain version's bits")
-
-    # K2 by block against the plain descending steps over the plain blocks
-    # (with K1's bits, the same streams)
-    t0 = time.perf_counter()
-    q, u = Q_end.clone(), torch.zeros_like(Q_end)
-    xo = torch.zeros((T.shape[0],) * 2, dtype=torch.float64, device=T.device)
-    gsum = torch.zeros(E.shape, dtype=torch.float64, device=T.device)
-    vnext = wk._vnext(valid)
-    for b in range(r.n_blocks - 1, -1, -1):
-        bs = slice(b * B, (b + 1) * B)
-        q, u = wk._dsc_steps(T, E, keys[:, bs], valid[:, bs], vnext[:, bs], blocks_p[b],
-                             q, u, xo, gsum, sum_dtype=torch.float64)
-    torch.cuda.synchronize()
-    k2p = (time.perf_counter() - t0) * 1e3
-    want = (ae_p, u, xo, gsum)
-    e2 = 0.0
-    for name, g, w, atol in zip(("alpha_end", "u_start", "xo", "gsum"), got, want,
-                                (1e-7, 1e-7, 1e-8, 1e-8)):
-        err = check_close(f"remat stats_pass [{tag}] {name}", g, w, rtol,
-                          atol * float(w.abs().max()) if name in ("xo", "gsum") else atol)
-        if name in ("u_start", "xo", "gsum"):
-            e2 = max(e2, err)
-    nv = float(valid.sum())
-    if abs(float(got[3].sum()) - nv) > 1e-6 * nv:
-        raise AssertionError(f"remat stats_pass [{tag}]: sum(gsum) != valid windows")
-
-    # the remat E-step against the stored-stream E-step
     ests = [wk.estep_direct(pi, T, E, keys, valid, soc, precision=prec, alpha_remat=a)
             for a in (B, None)]
     dll = _rel(float(ests[0][0]), float(ests[1][0]))
@@ -2096,12 +2126,12 @@ def compare_remat(im, pi, T, E, entry, exit_, n_seg=32):
         "for bit")
 
     # times of one pass's launches of each kernel, and the plain versions'
+    e1, e2, k1p, k8p, A_in, Q_end = found[prec]
+
     def remat_pass():
         rr = wk.AlphaRemat(T, E, keys, valid, A_in, Q_end, prec, B)
         yield "k1", rr.snap
-        for b in range(rr.n_blocks - 1, -1, -1):
-            yield "k1", lambda b=b: rr.asc_block(b)
-            yield "k2", lambda b=b: rr.dsc_block(b)
+        yield "k8", rr.sweep
 
     def blocked_pass():
         kk = wk.ViterbiPathsBlocked(T, E, keys, valid, e_, x_, B)
@@ -2112,12 +2142,12 @@ def compare_remat(im, pi, T, E, entry, exit_, n_seg=32):
 
     t = launch_times(remat_pass, 5)
     t.update(launch_times(blocked_pass, 5))
-    elt = cdt.itemsize
+    elt = wk.carry_dtype(prec, torch.float32).itemsize
     rec = {
-        "asc_sweep_remat": (e1, t["k1"], k1p * 1e3,
+        "asc_sweep_remat": (e1, t["k1"], k1p,
                             *bound("asc_sweep_remat", E, keys, valid, elt, block=B)),
-        "dsc_sweep_range": (e2, t["k2"], k2p,
-                            *bound("dsc_sweep_range", E, keys, valid, elt)),
+        "remat_sweep": (e2, t["k8"], k8p,
+                        *bound("remat_sweep", E, keys, valid, elt, block=B)),
         "viterbi_fwd_blocked": (0.0, t["fwd"], plain_k5_ms,
                                 *bound("viterbi_fwd_blocked", E, keys, valid, block=B)),
         "viterbi_back_blocked": (0.0, t["back"], plain_k5_ms,
@@ -2125,7 +2155,8 @@ def compare_remat(im, pi, T, E, entry, exit_, n_seg=32):
     }
     log(f"[{tag}] ms kernel/plain/bound: "
         + " ".join(f"{n} {v[1]:.3f}/{v[2]:.1f}/{v[3]:.4f}" for n, v in rec.items())
-        + f"; max abs err {e1:.2e} {e2:.2e} 0 0 (K5 blocked bit for bit)")
+        + f"; max abs err {e1:.2e} {e2:.2e} 0 0 (K5 blocked bit for bit; K8's plain "
+        "time is the whole plain remat pass)")
     return rec
 
 
@@ -2158,8 +2189,8 @@ def remat_against_stored(im, pi, T, E, entry, exit_):
     """The over-budget routes against the stored ones in time (CUDA events,
     in turns stored, remat, remat, stored): on the manager's first
     REMAT_SEGMENTS segments, the stored-stream K1 and K2 against the remat
-    pass's K1 snapshot and range and K2 by block (the statistics agreeing
-    as in ``compare_remat``); on every segment, K5 against K5 blocked (bit
+    pass's K1 snapshot and K8, then the E-step on those segments with and
+    without remat (the ll identical: it is K3's and K6's); on every segment, K5 against K5 blocked (bit
     for bit: the backpointer stream, over the budget's policy, still fits the
     card for this one comparison)."""
     import torch
@@ -2176,9 +2207,7 @@ def remat_against_stored(im, pi, T, E, entry, exit_):
     def remat():
         rr = wk.AlphaRemat(T, E, keys, valid, A_in, Q_end, prec, B)
         yield "remat K1", rr.snap
-        for b in range(rr.n_blocks - 1, -1, -1):
-            yield "remat K1", lambda b=b: rr.asc_block(b)
-            yield "remat K2", lambda b=b: rr.dsc_block(b)
+        yield "remat K8", rr.sweep
 
     def stored():
         al = [None]
@@ -2201,8 +2230,21 @@ def remat_against_stored(im, pi, T, E, entry, exit_):
         f"M = {M}, rung {prec!r}, block {B}), ms, two turns: " + ", ".join(
             f"{k} {t[k]:.2f} / {t2[k]:.2f}" for k in sorted(t)))
     log(f"  K1 + K2: stored {t['stored K1'] + t['stored K2']:.2f} / "
-        f"{t2['stored K1'] + t2['stored K2']:.2f}, remat "
-        f"{t['remat K1'] + t['remat K2']:.2f} / {t2['remat K1'] + t2['remat K2']:.2f}")
+        f"{t2['stored K1'] + t2['stored K2']:.2f}, remat K1 + K8 "
+        f"{t['remat K1'] + t['remat K8']:.2f} / {t2['remat K1'] + t2['remat K8']:.2f}")
+    # the E-step on the same segments (the first contig's), remat against stored:
+    # the ll comes from K3 and K6 alone, so it is the same number
+    soc = np.arange(n)[None]
+    ests = [wk.estep_direct(pi, T, E, keys, valid, soc, precision=prec, alpha_remat=a)
+            for a in (B, None)]
+    if float(ests[0][0]) != float(ests[1][0]):
+        raise AssertionError(f"remat E-step [first {n} segments]: ll "
+                             f"{float(ests[0][0])!r} against the stored stream's "
+                             f"{float(ests[1][0])!r}")
+    dst = [_rel_dist(a, b) for a, b in zip(ests[0][1:], ests[1][1:])]
+    log(f"remat E-step [first {n} segments]: ll identical to the stored stream's "
+        f"({float(ests[0][0])!r}); statistics within {max(dst):.3e} (relative)")
+    del ests
     S = im._wkeys.shape[0]
     k5 = [wk.viterbi_paths_cuda(T, E, im._wkeys, im._wvalid, entry, exit_)]
     blocked = wk.viterbi_paths_blocked_cuda(T, E, im._wkeys, im._wvalid, entry, exit_, B)
@@ -2224,6 +2266,72 @@ def remat_against_stored(im, pi, T, E, entry, exit_):
         + " / ".join(f"{x:.2f}" for x in tk)
         + f"; bounds K5 {b5[0]:.3f} ({b5[1]}), blocked forward {bf[0]:.3f} ({bf[1]}) + "
         f"backtrace {bb[0]:.3f} ({bb[1]})")
+
+
+def k8_alone(S=REMAT_SEGMENTS, L=16384, M=32, n_keys=63, block=128, reps=3):
+    """K8 alone at the posterior's shape (S x L = 6104 x 16384, M = 32, 63
+    keys, block 128) on synthetic inputs whose keys are mostly one key (a
+    monomorphic window's), at both rungs: its plan (``remat_plan`` and the
+    card's registers, spills and residency), the pass on the first 32
+    segments against the plain remat pass at K2's tolerances, and the
+    stored route (K1 + K2) against the remat pass (K1 snapshot + K8) in
+    time, in turns stored, remat, remat, stored, beside their bounds.  Not
+    part of ``main``: a quick check and timing of K8 on the card."""
+    import torch
+
+    from smcpp_tpu_torch.ops import window_kernel as wk
+
+    T, E, keys, valid, A_in, Q_end = problem(SEED, S, L, M, n_keys)
+    rng = np.random.RandomState(SEED + 8)
+    mono = torch.as_tensor(rng.rand(S, L) < 0.95, device="cuda")
+    keys = torch.where(mono, torch.zeros_like(keys), keys).contiguous()
+    for prec in ("default", "highest"):
+        bf16 = wk.carry_dtype(prec, torch.float32) == torch.bfloat16
+        tag = f"K8 alone, S x L = {S} x {L}, M = {M}, {n_keys} keys, block {block}, {prec!r}"
+        log(f"[{tag}] plan {wk.remat_plan(S, L, M, n_keys, bf16, block)}; on the card "
+            f"{wk.remat_sweep_plan(S, M, n_keys, bf16)}")
+        n = 32
+        k, v, a, q = (x[:n].contiguous() for x in (keys, valid, A_in, Q_end))
+        got = wk.stats_pass_remat_cuda(T, E, k, v, a, q, prec, block)
+        want = wk.stats_pass_remat_plain(T, E, k, v, a, q, prec, block,
+                                         sum_dtype=torch.float64)
+        rtol = DEFAULT_RTOL if bf16 else HIGHEST_RTOL
+        for name, g, w, atol in zip(("alpha_end", "u_start", "xo", "gsum"), got, want,
+                                    (1e-7, 1e-7, 1e-8, 1e-8)):
+            check_close(f"[{tag}] first {n} segments {name}", g, w, rtol,
+                        atol * float(w.abs().max()) if name in ("xo", "gsum") else atol)
+        log(f"[{tag}] first {n} segments: " + ", ".join(
+            f"{nm} {_rel_dist(g, w):.3e}" for nm, g, w in
+            zip(("alpha_end", "u_start", "xo", "gsum"), got, want)))
+
+        def remat():
+            rr = wk.AlphaRemat(T, E, keys, valid, A_in, Q_end, prec, block)
+            yield "remat K1", rr.snap
+            yield "remat K8", rr.sweep
+
+        def stored():
+            al = [None]
+
+            def k1():
+                al[0] = wk.asc_sweep_cuda(T, E, keys, valid, A_in, prec)[0]
+
+            def k2():
+                wk.dsc_sweep_cuda(T, E, keys, valid, al[0], Q_end)
+                al[0] = None
+
+            yield "stored K1", k1
+            yield "stored K2", k2
+
+        t = launch_times(stored, reps)
+        t.update(launch_times(remat, reps))
+        t2 = launch_times(remat, reps)
+        t2.update(launch_times(stored, reps))
+        elt = 2 if bf16 else 4
+        b8 = bound("remat_sweep", E, keys, valid, elt, block=block)
+        b2 = bound("dsc_sweep", E, keys, valid, elt)
+        log(f"[{tag}] ms, two turns: " + ", ".join(
+            f"{x} {t[x]:.2f} / {t2[x]:.2f}" for x in sorted(t))
+            + f"; bounds K8 {b8[0]:.3f} ({b8[1]}), K2 {b2[0]:.3f} ({b2[1]})")
 
 
 # Phase 8, two populations: the joint data's shape is that of

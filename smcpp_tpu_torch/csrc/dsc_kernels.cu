@@ -61,20 +61,6 @@
 // - At the end the W warps' xisum rows are added in warp order through
 //   shared memory into the block's slice of xo_part: a fixed order.  The
 //   wrapper reduces the per-block partials with one torch.sum in f64.
-// - By block (alpha remat; replaces the descending half of the alpha_remat
-//   branch of smcpp_tpu/ops/window_kernel.py:stats_pass, :579-613): a launch
-//   walks the windows [lb, le) only, reading that block's alphas, (S, le -
-//   lb, M), from K1's range mode.  Each segment's beta carry q and u comes
-//   in from the launch for the block after it (Q_end and zeros for the
-//   last) and goes out to the launch for the block before it; the valid
-//   flag of window le stands for the window after the block's last.  With
-//   `accumulate` the block adds its xisum rows into its slice of xo_part and
-//   its fixed-point table into its slice of gsum_part, read as integers,
-//   instead of writing them: the wrapper zeroes both before the last block's
-//   launch and converts the integers to f64 after the first block's.  Blocks
-//   of 32 windows aligned as the whole sweep's make the same chunks, so a
-//   window's terms are the whole sweep's; only the order of xisum's f64
-//   adds across launches differs.
 //
 // Registers and residency (nvcc -Xptxas -v, sm_90a, the smem-table
 // instantiations): MB = 16 uses 64 registers (__launch_bounds__ asks for 4
@@ -156,11 +142,10 @@ __global__ void __launch_bounds__(32 * DSC_MAX_WARPS, dsc_min_blocks<MB>())
     dsc_sweep_kernel(const float* __restrict__ T, const float* __restrict__ E,
                      const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
                      const typename Carry<BF16>::T* __restrict__ alphas,
-                     const float* __restrict__ Q_end, const float* __restrict__ u_in,
-                     int S, int L, int M, int n_keys, int lb, int le, bool accumulate,
+                     const float* __restrict__ Q_end, int S, int L, int M, int n_keys,
                      int seg_per_warp, float* __restrict__ u_start,
-                     float* __restrict__ q_out, double* __restrict__ xo_part,
-                     double* gsum_part, float* __restrict__ gam) {
+                     double* __restrict__ xo_part, double* gsum_part,
+                     float* __restrict__ gam) {
   using C = Carry<BF16>;
   using CT = typename C::T;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -177,17 +162,14 @@ __global__ void __launch_bounds__(32 * DSC_MAX_WARPS, dsc_min_blocks<MB>())
     for (int idx = threadIdx.x; idx < KM; idx += blockDim.x) sE[idx] = E[idx];
     tE = sE;
   }
-  // (accumulating into the global table: the wrapper zeroed it)
-  if (SMEM_T || !accumulate)
-    for (int idx = threadIdx.x; idx < KM; idx += blockDim.x) G[idx] = 0ull;
+  for (int idx = threadIdx.x; idx < KM; idx += blockDim.x) G[idx] = 0ull;
   __syncthreads();
 
   CT* const buf0 = reinterpret_cast<CT*>(smem + lay.a + (size_t)(2 * warp) * lay.chunk);
   CT* const buf1 = reinterpret_cast<CT*>(smem + lay.a + (size_t)(2 * warp + 1) * lay.chunk);
   float* sU = reinterpret_cast<float*>(smem + lay.u) + warp * 2 * MB;
-  const int LS = le - lb;  // windows of the alpha stream a segment
   const bool aligned = reinterpret_cast<uintptr_t>(alphas) % 16 == 0 &&
-                       (size_t)LS * M * sizeof(CT) % 16 == 0;
+                       (size_t)L * M * sizeof(CT) % 16 == 0;
 
   constexpr int RED = MB <= 4 ? 4 : MB <= 8 ? 8 : MB <= 16 ? 16 : 32;  // lanes reduced
   // the xisum update reuses u from registers where the budget has room for
@@ -201,31 +183,30 @@ __global__ void __launch_bounds__(32 * DSC_MAX_WARPS, dsc_min_blocks<MB>())
 #pragma unroll
   for (int i = 0; i < MB; ++i) xo[i] = 0.0;
 
-  const int nch = (LS + 31) / 32, top = lb + (nch - 1) * 32;
+  const int nch = (L + 31) / 32, top = (nch - 1) * 32;
   for (int r = 0; r < seg_per_warp; ++r) {
     const int s = (blockIdx.x * seg_per_warp + r) * W + warp;
     if (s >= S) break;
     const int32_t* kr = keys + (size_t)s * L;
     const uint8_t* vr = valid + (size_t)s * L;
-    const CT* al = alphas + (size_t)s * LS * M;  // window l at al + (l - lb) M
+    const CT* al = alphas + (size_t)s * L * M;
     float* gr = GAMMA ? gam + (size_t)s * L * M : nullptr;
     float q = live ? Q_end[(size_t)s * M + lane] : 0.f;
-    float u = (live && u_in != nullptr) ? u_in[(size_t)s * M + lane] : 0.f;
+    float u = 0.f;
     int p = 0;  // which of the warp's two u vectors holds u
-    if (lane < MB) sU[lane] = u;
-    int vprev = le < L ? (vr[le] != 0) : 0;  // valid flag of window l + 1
-    fetch_chunk(buf0, al + (size_t)(top - lb) * M, (le - top) * M, aligned, lane);
+    if (lane < MB) sU[lane] = 0.f;
+    int vprev = 0;  // valid flag of window l + 1
+    fetch_chunk(buf0, al + (size_t)top * M, (L - top) * M, aligned, lane);
     int nk, nv;
-    fetch_kv(kr, vr, top + lane, le, nk, nv);
+    fetch_kv(kr, vr, top + lane, L, nk, nv);
     for (int c = 0; c < nch; ++c) {
       const int l0 = top - 32 * c;
-      const int nstep = min(32, le - l0);
+      const int nstep = min(32, L - l0);
       const int my_kv = nv ? nk : -1;  // this lane's window: its key, or -1 if invalid
       const CT* cur = (c & 1) ? buf1 : buf0;
       if (c + 1 < nch) {
-        fetch_chunk((c & 1) ? buf0 : buf1, al + (size_t)(l0 - 32 - lb) * M, 32 * M, aligned,
-                    lane);
-        fetch_kv(kr, vr, l0 - 32 + lane, le, nk, nv);
+        fetch_chunk((c & 1) ? buf0 : buf1, al + (size_t)(l0 - 32) * M, 32 * M, aligned, lane);
+        fetch_kv(kr, vr, l0 - 32 + lane, L, nk, nv);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -292,20 +273,12 @@ __global__ void __launch_bounds__(32 * DSC_MAX_WARPS, dsc_min_blocks<MB>())
       __syncwarp();  // every lane is done with `cur` before it is refilled
     }
     if (live) u_start[(size_t)s * M + lane] = u;
-    if (live && q_out != nullptr) q_out[(size_t)s * M + lane] = q;
   }
 
   __syncthreads();
-  if (accumulate) {  // the shared table's integers into the block's slice
-    if constexpr (SMEM_T) {
-      unsigned long long* Gg = reinterpret_cast<unsigned long long*>(gp);
-      for (int idx = threadIdx.x; idx < KM; idx += blockDim.x) Gg[idx] += G[idx];
-    }
-  } else {
-    // (the global table is read past L1, where the atomics did not go)
-    for (int idx = threadIdx.x; idx < KM; idx += blockDim.x)
-      gp[idx] = (double)(SMEM_T ? G[idx] : __ldcg(G + idx)) * FIX_INV;
-  }
+  // (the global table is read past L1, where the atomics did not go)
+  for (int idx = threadIdx.x; idx < KM; idx += blockDim.x)
+    gp[idx] = (double)(SMEM_T ? G[idx] : __ldcg(G + idx)) * FIX_INV;
   // xisum: the warps' rows added in warp order, in the (now free) buffers
   double* sX = reinterpret_cast<double*>(smem + lay.a);
   for (int w = 0; w < W; ++w) {
@@ -321,16 +294,14 @@ __global__ void __launch_bounds__(32 * DSC_MAX_WARPS, dsc_min_blocks<MB>())
     __syncthreads();
   }
   double* xp = xo_part + (size_t)blockIdx.x * M * M;
-  for (int idx = threadIdx.x; idx < M * M; idx += blockDim.x)
-    xp[idx] = accumulate ? xp[idx] + sX[idx] : sX[idx];
+  for (int idx = threadIdx.x; idx < M * M; idx += blockDim.x) xp[idx] = sX[idx];
 }
 
 template <int MB, bool BF16, bool GAMMA>
 int launch(const float* T, const float* E, const int32_t* keys,
            const uint8_t* valid, const void* alphas, const float* Q_end,
-           const float* u_in, int S, int L, int M, int n_keys, int lb, int le,
-           bool accumulate, int W, int seg_per_warp, int n_blocks, float* u_start,
-           float* q_out, double* xo_part, double* gsum_part, float* gam,
+           int S, int L, int M, int n_keys, int W, int seg_per_warp, int n_blocks,
+           float* u_start, double* xo_part, double* gsum_part, float* gam,
            cudaStream_t st) {
   using A = const typename Carry<BF16>::T*;
   const int elt = BF16 ? 2 : 4, KM = n_keys * M;
@@ -338,9 +309,8 @@ int launch(const float* T, const float* E, const int32_t* keys,
                   dsc_sweep_kernel<MB, BF16, GAMMA, false>,
                   Layout(W, M, MB, KM, elt, true).total,
                   Layout(W, M, MB, KM, elt, false).total, dim3(n_blocks),
-                  dim3(32 * W), st, T, E, keys, valid, (A)alphas, Q_end, u_in, S, L, M,
-                  n_keys, lb, le, accumulate, seg_per_warp, u_start, q_out, xo_part,
-                  gsum_part, gam);
+                  dim3(32 * W), st, T, E, keys, valid, (A)alphas, Q_end, S, L, M,
+                  n_keys, seg_per_warp, u_start, xo_part, gsum_part, gam);
 }
 
 }  // namespace
@@ -350,41 +320,37 @@ extern "C" {
 // u_start (S, M) f32; xo_part (G, M, M) f64 and gsum_part (G, n_keys, M)
 // f64 per-block partials, G = n_blocks blocks of n_warps warps, each warp
 // walking seg_per_warp segments (window_kernel.dsc_plan); gam (S, L, M) f32
-// when non-null (K2g), else K2.  The sweep walks windows [lb, le) of keys
-// and valid (S, L); alphas (S, le - lb, M) in bf16 (bf16 != 0) or f32 are
-// those windows' stream.  Q_end (S, M) is the beta carry q entering window
-// le - 1, u_in (S, M) its u (null: zeros); q_out (S, M), when non-null,
-// gets q after window lb.  With accumulate, xo_part and gsum_part are added
-// to, gsum_part as (G, n_keys, M) 64-bit fixed-point integers (2^-40).  The
-// whole sweep is lb = 0, le = L, accumulate 0.
+// when non-null (K2g), else K2.  alphas (S, L, M) in bf16 (bf16 != 0) or f32.
 int smcpp_dsc_sweep(const float* T, const float* E, const int32_t* keys,
                     const uint8_t* valid, const void* alphas,
-                    const float* Q_end, const float* u_in, int S, int L, int M,
-                    int n_keys, int lb, int le, int accumulate, int bf16,
-                    int n_warps, int seg_per_warp, int n_blocks, float* u_start,
-                    float* q_out, double* xo_part, double* gsum_part, float* gam,
-                    void* stream) {
+                    const float* Q_end, int S, int L, int M, int n_keys,
+                    int bf16, int n_warps, int seg_per_warp, int n_blocks,
+                    float* u_start, double* xo_part, double* gsum_part,
+                    float* gam, void* stream) {
   if (M < 2 || M > 32 || S <= 0 || L <= 0 || n_keys <= 0 || n_warps < 1 ||
       n_warps > DSC_MAX_WARPS || seg_per_warp < 1 || n_blocks < 1 ||
-      (long long)n_blocks * n_warps * seg_per_warp < S || lb < 0 || le > L || le <= lb ||
-      (gam != nullptr && (lb != 0 || le != L || accumulate)))
+      (long long)n_blocks * n_warps * seg_per_warp < S)
     return (int)cudaErrorInvalidValue;
   const int MBV = padded(M);
   cudaStream_t st = (cudaStream_t)stream;
-  const bool acc = accumulate != 0;
   int e = 0;
-#define SMCPP_K2(BF, GM)                                                                    \
-  e = launch<MB_, BF, GM>(T, E, keys, valid, alphas, Q_end, u_in, S, L, M, n_keys, lb, le, \
-                          acc, n_warps, seg_per_warp, n_blocks, u_start, q_out, xo_part,   \
-                          gsum_part, gam, st)
   SMCPP_DISPATCH(MBV, {
     if (gam != nullptr) {
-      if (bf16) SMCPP_K2(true, true); else SMCPP_K2(false, true);
+      e = bf16 ? launch<MB_, true, true>(T, E, keys, valid, alphas, Q_end, S, L, M, n_keys,
+                                         n_warps, seg_per_warp, n_blocks, u_start,
+                                         xo_part, gsum_part, gam, st)
+               : launch<MB_, false, true>(T, E, keys, valid, alphas, Q_end, S, L, M, n_keys,
+                                          n_warps, seg_per_warp, n_blocks, u_start,
+                                          xo_part, gsum_part, gam, st);
     } else {
-      if (bf16) SMCPP_K2(true, false); else SMCPP_K2(false, false);
+      e = bf16 ? launch<MB_, true, false>(T, E, keys, valid, alphas, Q_end, S, L, M, n_keys,
+                                          n_warps, seg_per_warp, n_blocks, u_start,
+                                          xo_part, gsum_part, gam, st)
+               : launch<MB_, false, false>(T, E, keys, valid, alphas, Q_end, S, L, M, n_keys,
+                                           n_warps, seg_per_warp, n_blocks, u_start,
+                                           xo_part, gsum_part, gam, st);
     }
   });
-#undef SMCPP_K2
   if (e) return e;
   return (int)cudaGetLastError();
 }

@@ -34,17 +34,21 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "window_kernels.cu": {
         "smcpp_segment_ops": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-        "smcpp_asc_sweep": [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-        ],
+        "smcpp_asc_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
         "smcpp_asc_sweep_plan": [_I, _I, _I, _I, _P],
         "smcpp_asc_div_check": [_P, _P, _I, _P, _P],
     },
     "dsc_kernels.cu": {
         "smcpp_dsc_sweep": [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-            _P, _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P,
         ],
+    },
+    "remat_kernels.cu": {
+        "smcpp_remat_sweep": [
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+        ],
+        "smcpp_remat_sweep_plan": [_I, _I, _I, _I, _P],
     },
     "viterbi_kernels.cu": {
         "smcpp_viterbi_ops": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],

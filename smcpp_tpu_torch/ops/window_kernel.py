@@ -17,6 +17,9 @@ decompressed to unit windows and cut into S segments of L windows
            alpha stream (K1), then a descending beta sweep reading it and
            accumulating xisum and the per-key posterior masses (K2), or,
            for the decode, also storing each window's posterior (K2g);
+           over the memory budget (alpha remat) K1 keeps only the carry
+           entering each block of windows and K8 recomputes each block in
+           shared memory as it descends (``AlphaRemat``);
   finally  ``boundary_stats``: the transitions that cross segment and
            contig boundaries.
 
@@ -169,8 +172,8 @@ ASC_SWEEP_REMAT = _Kernel(
     "asc_sweep_remat", "smcpp_tpu_torch/csrc/window_kernels.cu",
     "smcpp_tpu/ops/window_kernel.py:577",
 )
-DSC_SWEEP_RANGE = _Kernel(
-    "dsc_sweep_range", "smcpp_tpu_torch/csrc/dsc_kernels.cu",
+REMAT_SWEEP = _Kernel(
+    "remat_sweep", "smcpp_tpu_torch/csrc/remat_kernels.cu",
     "smcpp_tpu/ops/window_kernel.py:585",
 )
 VITERBI_FWD_BLOCKED = _Kernel(
@@ -182,7 +185,7 @@ VITERBI_BACK_BLOCKED = _Kernel(
     "smcpp_tpu/ops/window_kernel.py:937",
 )
 ESTEP_KERNELS = (SEGMENT_OPS, ASC_SWEEP, DSC_SWEEP, BOUNDARY_SCAN)
-REMAT_KERNELS = (ASC_SWEEP_REMAT, DSC_SWEEP_RANGE, VITERBI_FWD_BLOCKED,
+REMAT_KERNELS = (ASC_SWEEP_REMAT, REMAT_SWEEP, VITERBI_FWD_BLOCKED,
                  VITERBI_BACK_BLOCKED)
 KERNELS = ESTEP_KERNELS + (
     DSC_SWEEP_GAMMA, VITERBI_OPS, VITERBI_PATHS, VITERBI_BOUNDARY,
@@ -314,21 +317,21 @@ def asc_sweep_cuda(T, E, keys, valid, A_in, precision):
     alphas = torch.empty((S, L, M), dtype=cdt, device=T.device)
     alpha_end = torch.empty((S, M), dtype=torch.float32, device=T.device)
     ASC_SWEEP.launches += 1
-    _asc_launch(T, E, keys, valid, A_in, cdt, 0, L, L, alphas, None, alpha_end,
+    _asc_launch(T, E, keys, valid, A_in, cdt, L, alphas, None, alpha_end,
                 ASC_SWEEP.name)
     return alphas, alpha_end
 
 
-def _asc_launch(T, E, keys, valid, A_in, cdt, lb, le, blk, alphas, snaps,
-                alpha_end, name):
-    "One launch of K1's kernel over windows [lb, le) (smcpp_asc_sweep)."
+def _asc_launch(T, E, keys, valid, A_in, cdt, blk, alphas, snaps, alpha_end, name):
+    """One launch of K1's kernel (smcpp_asc_sweep): the whole stream
+    (``alphas``), or the snapshot mode (``snaps``, every ``blk`` windows)."""
     S, L = keys.shape
     _cuda.check(
         _cuda.lib().smcpp_asc_sweep(
             T.data_ptr(), E.data_ptr(), keys.data_ptr(), valid.data_ptr(),
             A_in.data_ptr(), S, L, T.shape[0], E.shape[0],
-            int(cdt == torch.bfloat16), lb, le, blk, _ptr(alphas), _ptr(snaps),
-            _ptr(alpha_end), _stream(T.device),
+            int(cdt == torch.bfloat16), blk, _ptr(alphas), _ptr(snaps),
+            alpha_end.data_ptr(), _stream(T.device),
         ),
         name,
     )
@@ -398,28 +401,19 @@ def _dsc_launch(kernel, T, E, keys, valid, alphas, Q_end, gam):
     u_start = torch.empty((S, M), dtype=torch.float32, device=T.device)
     xo_part = torch.empty((G, M, M), dtype=torch.float64, device=T.device)
     gsum_part = torch.empty((G, n_keys, M), dtype=torch.float64, device=T.device)
+    lib = _cuda.lib()
     kernel.launches += 1
-    _dsc_call(T, E, keys, valid, alphas, Q_end, None, 0, L, False, u_start, None,
-              xo_part, gsum_part, gam, kernel.name)
-    return u_start, xo_part.sum(0), gsum_part.sum(0)
-
-
-def _dsc_call(T, E, keys, valid, alphas, q_in, u_in, lb, le, accumulate,
-              u_out, q_out, xo_part, gsum_part, gam, name):
-    "One launch of K2's kernel over windows [lb, le) (smcpp_dsc_sweep)."
-    S, L = keys.shape
-    M, n_keys = T.shape[0], E.shape[0]
-    warps, seg_per_warp, G = dsc_plan(S, L, n_keys, M)
     _cuda.check(
-        _cuda.lib().smcpp_dsc_sweep(
+        lib.smcpp_dsc_sweep(
             T.data_ptr(), E.data_ptr(), keys.data_ptr(), valid.data_ptr(),
-            alphas.data_ptr(), q_in.data_ptr(), _ptr(u_in), S, L, M, n_keys, lb, le,
-            int(accumulate), int(alphas.dtype == torch.bfloat16), warps,
-            seg_per_warp, G, u_out.data_ptr(), _ptr(q_out), xo_part.data_ptr(),
-            gsum_part.data_ptr(), _ptr(gam), _stream(T.device),
+            alphas.data_ptr(), Q_end.data_ptr(), S, L, M, n_keys,
+            int(alphas.dtype == torch.bfloat16), warps, seg_per_warp, G,
+            u_start.data_ptr(), xo_part.data_ptr(), gsum_part.data_ptr(),
+            _ptr(gam), _stream(T.device),
         ),
-        name,
+        kernel.name,
     )
+    return u_start, xo_part.sum(0), gsum_part.sum(0)
 
 
 def dsc_sweep_cuda(T, E, keys, valid, alphas, Q_end):
@@ -458,98 +452,149 @@ def dsc_sweep_gamma_cuda(T, E, keys, valid, alphas, Q_end):
     return u_start, xo, gsum, gam
 
 
+# K8 (csrc/remat_kernels.cu): windows a ring slot holds (REMAT_CW there) and
+# the shared bytes of the producer's staged keys and flags (RematStage)
+REMAT_CHUNK = 8
+_REMAT_STAGE_BYTES = 2048
+
+
+def remat_plan(S, L, M, n_keys, bf16, block):
+    """K8's launch for these sizes, a pure function of them (the kernel's
+    RematLayout): {"blocks": one block of two warps per 16 segments,
+    "chunk": windows a ring slot holds, "chunks_per_block": ring chunks a
+    block of ``block`` windows, "shared_bytes", "shared_table": whether the
+    emission table is in shared memory (else global), "gsum_group": blocks
+    of the grid adding into one slice of the gsum partials, "gsum_parts":
+    slices, "carry_floats": the chunk-entry carry scratch, two blocks' worth
+    a tile}.  The slices hold 64-bit fixed-point integers: gsum_group x 16 x
+    L x 2^GSUM_FRAC_BITS must stay under 2^62, and the slices under
+    GSUM_PART_BYTES; raises when both cannot hold."""
+    if block <= 0 or L % block:
+        raise ValueError(f"block {block} must divide L = {L}")
+    MB = 16 if M <= 16 else 32
+    elt = 2 if bf16 else 4
+    slot = REMAT_CHUNK * 32 * (MB // 2) * elt + REMAT_CHUNK * 16 * 4
+    base = _REMAT_STAGE_BYTES + 2 * slot + 3 * 16 * (MB + 8) * 4
+    table = n_keys * (MB + 8) * 4
+    shared_table = base + table <= SMEM_MAX
+    blocks = -(-S // 16)
+    group = max(1, -(-blocks * n_keys * M * 8 // GSUM_PART_BYTES))
+    if group * 16 * L << GSUM_FRAC_BITS >= 1 << 62:
+        raise ValueError(
+            f"remat_sweep: {group} x 16 segments of {L} windows per gsum slice "
+            f"overflow the 64-bit fixed-point table ({n_keys} keys, M = {M})"
+        )
+    n_chunks = -(-block // REMAT_CHUNK)
+    return {
+        "blocks": blocks, "chunk": REMAT_CHUNK, "chunks_per_block": n_chunks,
+        "shared_bytes": base + (table if shared_table else 0),
+        "shared_table": shared_table, "gsum_group": group,
+        "gsum_parts": -(-blocks // group),
+        "carry_floats": blocks * 2 * n_chunks * 32 * (MB // 2),
+    }
+
+
+def remat_sweep_plan(S, M, n_keys, bf16):
+    """K8's launch on the card: {warps per block, blocks, registers per
+    thread, shared bytes per block, whether the emission table is in shared
+    memory, spill bytes per thread, windows a ring slot holds, blocks
+    resident on an SM}."""
+    out = (ctypes.c_int * 8)()
+    _cuda.check(_cuda.lib().smcpp_remat_sweep_plan(S, M, n_keys, int(bf16), out),
+                REMAT_SWEEP.name)
+    keys = ("warps_per_block", "blocks", "registers", "shared_bytes", "shared_table",
+            "spill_bytes", "chunk", "resident_blocks")
+    return dict(zip(keys, list(out)))
+
+
 class AlphaRemat:
     """Alpha remat on the card (replaces the alpha_remat branch of the JAX
-    package's window_kernel.py:stats_pass, :567-613): K1 in its snapshot
-    and range modes, K2 by block, launch by launch.  Construct it, then call
-    ``snap()``, then for each block b from the last to the first
-    ``asc_block(b)`` and ``dsc_block(b)``, then ``finish()``, on the current
-    stream (``stats_pass_remat_cuda`` does; they are separate so that each
-    can be timed).
+    package's window_kernel.py:stats_pass, :567-613): two launches.
+    Construct it, then call ``snap()``, then ``sweep()``, then ``finish()``,
+    on the current stream (``stats_pass_remat_cuda`` does; they are separate
+    so that each can be timed).
 
-      snap()          K1 over all L windows, writing no stream: the carry
-                      entering each block of ``block`` windows, rounded to
-                      the carry dtype, (L / block, S, M), and alpha_end;
-      asc_block(b)    K1 over block b from its snapshot (in f32), writing the
-                      block's (S, block, M) stream into a one-block scratch;
-      dsc_block(b)    K2 over block b from that scratch, the beta carries
-                      (q, u) passed from the block after it, xisum and the
-                      fixed-point gsum added into per-block partials;
-      finish()        the partials summed: (alpha_end (S, M), u_start (S, M),
-                      xo (M, M) f64, gsum (n_keys, M) f64).
+      snap()     K1 over all L windows, writing no stream: the carry entering
+                 each block of ``block`` windows, rounded to the carry dtype,
+                 (L / block, S, M), and alpha_end;
+      sweep()    K8 (``remat_sweep``): for each block from the last, its
+                 alphas recomputed from its snapshot with K1's step and the
+                 descending steps over them, in one launch;
+      finish()   (alpha_end (S, M), u_start (S, M), xo (M, M) f64, gsum
+                 (n_keys, M) f64): K8's partials summed.
 
-    What bounds it: K1's and K2's, plus a second K1 sweep, in 1 + 2 L /
-    block launches: the stream is (S, block, M) a launch, not (S, L, M).
-    The snapshots are rounded to the carry dtype (bf16 at 'default') as the
-    reference's are, so a recomputed block's stream starts from that
-    rounding; alpha_end is the unrounded sweep's.  From the same stream,
-    every window's K2 terms are K2's: gsum's integers sum exactly in any
-    order, so only xisum differs, by the order of its f64 adds across the
-    blocks and, where block or L is not a multiple of 32, by its f32 sums
-    over other 32-window chunks."""
+    What bounds it: K1's snapshot sweep, then K8's recompute (1 + (nc - 1) /
+    nc sweeps of K1's step, nc chunks of REMAT_CHUNK windows a block) beside
+    its descent (``remat_plan``).  The snapshots are rounded to the carry
+    dtype (bf16 at 'default') as the reference's are, so a recomputed
+    block's stream starts from that rounding; alpha_end is the unrounded
+    sweep's.  The recomputed stream is K1's, entry for entry; the descent
+    sums T u in f64 and xisum and gsum in f32 over a chunk or a run of
+    rows before their f64 or fixed-point sums (csrc/remat_kernels.cu), so
+    u_start, xo and gsum agree with the plain pass within K2's tolerances;
+    every sum is formed in an order fixed by (S, L, M), so two passes are
+    bit-identical."""
 
     def __init__(self, T, E, keys, valid, A_in, Q_end, precision, block):
         _check_inputs(T, E, keys, valid, A_in, Q_end)
         S, L = keys.shape
         M, n_keys = T.shape[0], E.shape[0]
-        if block <= 0 or L % block:
-            raise ValueError(f"block {block} must divide L = {L}")
         dev = T.device
-        self.T, self.E, self.keys, self.valid, self.A_in = T, E, keys, valid, A_in
-        self.block, self.n_blocks = block, L // block
         self.cdt = carry_dtype(precision, torch.float32)
+        self.plan = remat_plan(S, L, M, n_keys, self.cdt == torch.bfloat16, block)
+        self.T, self.E, self.keys, self.valid = T, E, keys, valid
+        self.A_in, self.Q_end = A_in, Q_end
+        self.block, self.n_blocks = block, L // block
         self.snaps = torch.empty((self.n_blocks, S, M), dtype=self.cdt, device=dev)
         self.alpha_end = torch.empty((S, M), dtype=torch.float32, device=dev)
-        self.alphas = torch.empty((S, block, M), dtype=self.cdt, device=dev)
-        self.q = [Q_end.clone(), torch.empty_like(Q_end)]
-        self.u = [torch.zeros_like(Q_end), torch.empty_like(Q_end)]
-        _, _, G = dsc_plan(S, L, n_keys, M)
-        self.xo_part = torch.zeros((G, M, M), dtype=torch.float64, device=dev)
-        self.gsum_part = torch.zeros((G, n_keys, M), dtype=torch.int64, device=dev)
+        self.u_start = torch.empty((S, M), dtype=torch.float32, device=dev)
+        MB = 16 if M <= 16 else 32  # K8's padded width
+        self.xo_part = torch.zeros((self.plan["blocks"], MB, MB), dtype=torch.float64,
+                                   device=dev)
+        self.gsum_part = torch.zeros((self.plan["gsum_parts"], n_keys, M),
+                                     dtype=torch.int64, device=dev)
+        self.carries = torch.empty((max(1, self.plan["carry_floats"]),),
+                                   dtype=torch.float32, device=dev)
 
     def snap(self):
         "K1 over every window: the snapshots and alpha_end."
         ASC_SWEEP_REMAT.launches += 1
-        _asc_launch(self.T, self.E, self.keys, self.valid, self.A_in, self.cdt, 0,
-                    self.keys.shape[1], self.block, None, self.snaps, self.alpha_end,
-                    ASC_SWEEP_REMAT.name)
+        _asc_launch(self.T, self.E, self.keys, self.valid, self.A_in, self.cdt,
+                    self.block, None, self.snaps, self.alpha_end, ASC_SWEEP_REMAT.name)
 
-    def asc_block(self, b):
-        "K1 over block b from its snapshot: the block's stream."
-        lb = b * self.block
-        a = self.snaps[b].float()
-        ASC_SWEEP_REMAT.launches += 1
-        _asc_launch(self.T, self.E, self.keys, self.valid, a, self.cdt, lb,
-                    lb + self.block, self.block, self.alphas, None, None,
-                    ASC_SWEEP_REMAT.name)
-
-    def dsc_block(self, b):
-        "K2 over block b from its stream, carrying (q, u) to block b - 1."
-        lb = b * self.block
-        DSC_SWEEP_RANGE.launches += 1
-        _dsc_call(self.T, self.E, self.keys, self.valid, self.alphas, self.q[0],
-                  self.u[0], lb, lb + self.block, True, self.u[1], self.q[1],
-                  self.xo_part, self.gsum_part, None, DSC_SWEEP_RANGE.name)
-        self.q.reverse()
-        self.u.reverse()
+    def sweep(self):
+        "K8 over every block, the last first: u_start and the partials."
+        S, L = self.keys.shape
+        M, n_keys = self.T.shape[0], self.E.shape[0]
+        REMAT_SWEEP.launches += 1
+        _cuda.check(
+            _cuda.lib().smcpp_remat_sweep(
+                self.T.data_ptr(), self.E.data_ptr(), self.keys.data_ptr(),
+                self.valid.data_ptr(), self.snaps.data_ptr(), self.Q_end.data_ptr(),
+                S, L, M, n_keys, int(self.cdt == torch.bfloat16), self.block,
+                self.plan["gsum_group"], self.carries.data_ptr(),
+                self.u_start.data_ptr(), self.xo_part.data_ptr(),
+                self.gsum_part.data_ptr(), _stream(self.T.device),
+            ),
+            REMAT_SWEEP.name,
+        )
 
     def finish(self):
         """(alpha_end (S, M), u_start (S, M), xo (M, M) f64, gsum (n_keys, M)
-        f64): the per-block partials summed, gsum's integers scaled by
+        f64): the partials summed in f64, gsum's integers scaled by
         2^-GSUM_FRAC_BITS first (K2's conversion)."""
+        M = self.T.shape[0]
         gsum = (self.gsum_part.double() * 2.0**-GSUM_FRAC_BITS).sum(0)
-        return self.alpha_end, self.u[0], self.xo_part.sum(0), gsum
+        return self.alpha_end, self.u_start, self.xo_part.sum(0)[:M, :M], gsum
 
 
 def stats_pass_remat_cuda(T, E, keys, valid, A_in, Q_end, precision, block):
-    """stats_pass(alpha_remat=block) on the card: ``AlphaRemat``'s
-    launches, 1 + L / block of K1 (``asc_sweep_remat``) and L / block of K2
-    by block (``dsc_sweep_range``).  Returns (alpha_end, u_start, xo, gsum)."""
+    """stats_pass(alpha_remat=block) on the card: ``AlphaRemat``'s two
+    launches, K1's snapshot sweep (``asc_sweep_remat``) and K8
+    (``remat_sweep``).  Returns (alpha_end, u_start, xo, gsum)."""
     r = AlphaRemat(T, E, keys, valid, A_in, Q_end, precision, block)
     r.snap()
-    for b in range(r.n_blocks - 1, -1, -1):
-        r.asc_block(b)
-        r.dsc_block(b)
+    r.sweep()
     return r.finish()
 
 
@@ -1205,6 +1250,33 @@ def stats_pass_remat_plain(T, E, keys, valid, A_in, Q_end, precision, block,
     return a, u, xo, gsum
 
 
+def remat_chunks_plain(T, E, keys, valid, snap, precision, chunk=REMAT_CHUNK,
+                       sum_dtype=torch.float64):
+    """K8's recompute of one block as plain torch: keys and valid (S, blk)
+    are the block's, snap (S, M) its snapshot in the carry dtype.  The
+    ascending sweep from the snapshot keeps the f32 carry entering each
+    chunk of ``chunk`` windows, then each chunk is swept again from its
+    carry, the last first (the order K8's producer hands them over).
+    Returns the block's stream (S, blk, M) in the carry dtype, assembled
+    from the chunks; it equals ``asc_sweep_plain`` over the whole block bit
+    for bit, because the step renormalises every window and so depends only
+    on the carry it starts from."""
+    blk = keys.shape[1]
+    starts = range(0, blk, chunk)
+    carries, a = [], snap.to(E.dtype)
+    for l0 in starts:
+        carries.append(a)
+        if l0 + chunk < blk:
+            _, a = asc_sweep_plain(T, E, keys[:, l0:l0 + chunk], valid[:, l0:l0 + chunk],
+                                   a, precision, sum_dtype)
+    out = torch.empty((keys.shape[0], blk, T.shape[0]), dtype=snap.dtype, device=T.device)
+    for l0, a in zip(list(starts)[::-1], carries[::-1]):
+        sl = slice(l0, l0 + chunk)
+        out[:, sl], _ = asc_sweep_plain(T, E, keys[:, sl], valid[:, sl], a, precision,
+                                        sum_dtype)
+    return out
+
+
 def _mp_neg(dt, dev):
     "The max-plus 'impossible' score (window_kernel.py:_mp_neg)."
     return torch.tensor(-1e30, dtype=dt, device=dev)
@@ -1513,8 +1585,8 @@ def stats_pass(T, E, keys, valid, A_in, Q_end, e_all=None, precision=None,
     it excludes ``emit_gamma``, as in the reference.
 
     On CUDA tensors: K1 then K2, or K1 then K2g with ``emit_gamma``, or
-    alpha remat's launches (``AlphaRemat``).  The emission stream ``e_all``
-    is not ported and raises."""
+    alpha remat's K1 snapshot sweep then K8 (``AlphaRemat``).  The emission
+    stream ``e_all`` is not ported and raises."""
     if e_all is not None:
         raise NotImplementedError(
             "stats_pass: the e_all emission stream is not ported; the sweeps "
