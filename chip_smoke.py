@@ -28,7 +28,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    count the fit launched the kernels at), with kernel and plain times;
    then the span E-step (``hmm.estep``: the chunk products, K6 over them
    once, the SpanLoglik backward) on the same manager's packed rows, held
-   against its window E-step (``span_estep``);
+   against its window E-step (``span_estep``); then the f32 M-step's gate
+   on the fitted manager and one coarse Q batch timed in f64 and in f32
+   (``mstep_crossover``);
 5. the posterior path: ``smcpp_tpu_torch.commands.main posterior --device
    cuda --map --intervals 0.025,0.5,0.975`` with phase 4's model on the
    first 100 Mbp contig (M=32, every base a window); checks the npz (gammas,
@@ -120,6 +122,29 @@ Phases, in order; any failure ends the script with a non-zero exit:
    (``remat_against_stored``).  Alone: ``python3 -c 'import chip_smoke as
    c, tempfile; c.card(); c.build(); c.over_budget_posterior(
    tempfile.mkdtemp(), "MODEL.json")'`` with a fitted model.final.json.
+12. the wide sample (``wide_sample``): 2 contigs x 100 Mbp at n = 50
+   undistinguished lineages from phase 4's truth (seeds 120, 121), where the
+   f32 M-step's gate opens ((n+1) n K past 50,000): ``estimate
+   --em-iterations 2 --device cuda`` through the CLI at the defaults, then
+   again with the gate closed by hand (``wide_fit``): per fit the gate's
+   work and decision, per EM iteration the E-step and M-step seconds, the Q
+   batches and candidates (coarse and exact apart, and how many ran as the
+   f32 program) and the M-step's peak device memory, the final
+   log-likelihood; both model.final.json finite, the f32 programs run
+   (``manager.FAST_PROGRAMS``' counts) in the first fit and in no other;
+   on the first fit's manager JAX's rule for an f32 batch
+   (``qbatch_rule``: the error bound on a coarse batch of the optimizer's
+   prefetch shape, 24 rows a knot, and on a rho batch of 12, the same
+   argmax on the rho batch, each coarse grid's f32 pick no further below
+   its best f64 value than the batch's largest error), then one coarse
+   batch timed in f64 and in f32
+   (``mstep_crossover``, as at the end of phase 4 on its n = 20 manager,
+   where the gate is closed and is opened by hand); the two fits'
+   log-likelihoods within 1e-4 relative (the EM's ftol, as
+   tests/test_torch_fast_mstep.py holds the CPU fits) and the largest |y|
+   difference.  Alone: ``python3 -c 'import
+   chip_smoke as c, tempfile; c.card(); c.build();
+   c.wide_sample(tempfile.mkdtemp())'``.
 
 K2's plain version sums each window's per-key masses in f64
 (``dsc_sweep_plain(..., sum_dtype=float64)``, ``k2_plain``): the f32
@@ -206,6 +231,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+CARD = "card not read"  # nvidia-smi's name and power limit (``card``)
 
 # tolerances of tests/test_torch_cuda.py
 HIGHEST_RTOL = 1e-5  # exact-f32 recursions in another summation order
@@ -246,6 +272,8 @@ def card():
     log(smi)
     log("torch device:", torch.cuda.get_device_name(0), "| torch",
         torch.__version__, "cuda", torch.version.cuda)
+    global CARD
+    CARD = smi
     return smi
 
 
@@ -1218,7 +1246,8 @@ def main_path(workdir):
         f"S x L = {tuple(analysis._ims[('pop1',)]._wkeys.shape)}")
     for i, (e, m) in enumerate(iters):
         log(f"  EM iteration {i}: E-step {e:.3f} s, M-step {m:.3f} s")
-    log(f"  final loglik {analysis.loglik():.6f}, rho {d['rho']:.6g}, "
+    ll = analysis.loglik()
+    log(f"  final loglik {ll:.6f}, rho {d['rho']:.6g}, "
         f"y {np.round(y, 4).tolist()}")
     log(f"  kernel launches on the main path: {launches}")
     im = analysis._ims[("pop1",)]
@@ -1232,6 +1261,7 @@ def main_path(workdir):
     ll_agreement("slice", pi, T, E, im._wkeys, im._wvalid, im._soc, im.precision)
     records = compare_main_path(im)
     span_estep(im)
+    mstep_crossover(f"phase 4 (n = {n})", im)
     return launches, records, os.path.join(out, "model.final.json"), files
 
 
@@ -3263,6 +3293,296 @@ def c3_throughput():
         del al, al_p
 
 
+# ---------------------------------------------------------------------------
+# Phase 12, the wide sample: n = 50 undistinguished lineages, past the f32
+# M-step's size gate at the defaults' K (manager.FAST_MSTEP_MIN_WORK)
+# ---------------------------------------------------------------------------
+
+WIDE_N = 50
+WIDE_BP = 100_000_000
+WIDE_SEEDS = (120, 121)
+COARSE_ROWS = 24  # rows a knot of the optimizer's coarse grid (optimizer._BATCH)
+
+
+@contextlib.contextmanager
+def fast_mstep_gate(min_work):
+    """The f32 M-step's size gate (OnePopInferenceManager.FAST_MSTEP_MIN_WORK)
+    at ``min_work`` for the block: 0 opens it on any card, inf closes it,
+    None leaves the default."""
+    from smcpp_tpu_torch.inference.manager import OnePopInferenceManager as IM
+
+    old = IM.FAST_MSTEP_MIN_WORK
+    if min_work is not None:
+        IM.FAST_MSTEP_MIN_WORK = min_work
+    try:
+        yield
+    finally:
+        IM.FAST_MSTEP_MIN_WORK = old
+
+
+def mstep_gate(label, im):
+    "Print the f32 M-step gate's work and decision for a manager."
+    work = im.mstep_work()
+    on = im._use_fast_mstep()
+    log(f"{label}: M-step gate (n+1)*n*K = {im.n + 1}*{im.n}*{im._grid.K} = "
+        f"{work:,} against {im.FAST_MSTEP_MIN_WORK:,}: f32 programs "
+        f"{'on' if on else 'off'}")
+    return work, on
+
+
+def coarse_rows(im):
+    """A coarse batch of the optimizer's prefetch shape about the manager's
+    y: COARSE_ROWS rows a knot, knot k swept over y[k] +- 1.5."""
+    y0 = np.asarray(im.model.y, float)
+    K = len(y0)
+    ys = np.tile(y0, (COARSE_ROWS * K, 1))
+    for k in range(K):
+        ys[k * COARSE_ROWS:(k + 1) * COARSE_ROWS, k] = (
+            y0[k] + np.linspace(-1.5, 1.5, COARSE_ROWS))
+    return ys
+
+
+def qbatch_call(im, fast_ok, ys):
+    """Host milliseconds of one synchronized ``im.Q_batch(ys=ys,
+    fast_ok=fast_ok)`` and its peak device bytes above what was held."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    im.Q_batch(ys=ys, fast_ok=fast_ok)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t) * 1e3,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def qbatch_device(im, fast_ok, ys):
+    """One ``Q_batch`` under torch.profiler: (CUDA kernels launched, their
+    summed device milliseconds), or None where the profiler shows no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        im.Q_batch(ys=ys, fast_ok=fast_ok)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None
+    return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3
+
+
+def mstep_crossover(label, im, pairs=5):
+    """The gate's figures on a fitted manager and one coarse batch of the
+    optimizer's shape timed in f64 and as the f32 program (the gate opened
+    by hand where it is closed), in turns (f64,
+    f32, f32, f64) after a warm-up of each, medians of 2 x ``pairs`` calls;
+    each batch's kernel launches and device milliseconds (torch.profiler)
+    and its peak device bytes beside the chunk plan's estimate."""
+    from smcpp_tpu_torch.inference import manager as mg
+
+    mstep_gate(label, im)
+    ys = coarse_rows(im)
+    runs = {False: [], True: []}
+    with fast_mstep_gate(0):
+        before = mg.Q_BATCH32.launches
+        for fast in (False, True):
+            qbatch_call(im, fast, ys)
+        for _ in range(pairs):
+            for fast in (False, True, True, False):
+                runs[fast].append(qbatch_call(im, fast, ys))
+        if mg.Q_BATCH32.launches != before + 1 + 2 * pairs:
+            raise AssertionError(f"{label}: the f32 program did not run")
+        try:
+            dev = {fast: qbatch_device(im, fast, ys) for fast in (False, True)}
+        except (RuntimeError, AttributeError) as e:  # the tracer, not the program
+            dev = {False: None, True: None}
+            log(f"  torch.profiler: {e!r}")
+    (t64, t32), (b64, b32) = (
+        [float(np.median([r[i] for r in runs[f]])) for f in (False, True)]
+        for i in (0, 1))
+    rows = im.q_chunk(), im.q_chunk(f32=True)
+    devs = "; ".join(
+        f"{name} {d[0]} kernels, {d[1]:.2f} ms on the device" if d else
+        f"{name} device time not measured"
+        for name, d in (("f64", dev[False]), ("f32", dev[True])))
+    log(f"  one coarse batch of {len(ys)} rows ({COARSE_ROWS} a knot), "
+        f"host clock, median of {2 * pairs} in turns: f64 {t64:.2f} ms, f32 "
+        f"{t32:.2f} ms ({t64 / t32:.2f}x); {devs}; peak above the resident "
+        f"{b64 / 1e9:.3f} / {b32 / 1e9:.3f} GB (the plan counts {mg.Q_LIVE} "
+        f"arrays of (n+1)*n*K a candidate: "
+        f"{len(ys) * 8 * mg.Q_LIVE * im.mstep_work() / 1e9:.3f} / "
+        f"{len(ys) * 4 * mg.Q_LIVE * im.mstep_work() / 1e9:.3f} GB; chunks of "
+        f"{rows[0]} / {rows[1]} rows) [{CARD}]")
+    return t64, t32
+
+
+def qbatch_rule(tag, v32, v64, block=None):
+    """JAX's bar for an f32 batch (tests/test_f32_setup.py:71-73): max |v32
+    - v64| below lim = max(1e-3 * median |diff v64|, 1e-5 * max |v64|) and
+    the same argmax.  A single grid (the rho batch) is held to both.  With
+    ``block`` (a coarse batch: one scalar search's grid every ``block``
+    rows) the argmax is each grid's: at the fitted optimum a grid's best
+    rows tie closer than the f32 error, so its argmax may move (2 of 7
+    grids on the card), and the error bound alone lets the f32 pick lie up
+    to 2 x the batch's largest error below the grid's best f64 value; held
+    is that it lies no more than that error below it (0.0024 against 0.081
+    on the card)."""
+    sig = np.median(np.abs(np.diff(v64)))
+    err = float(np.max(np.abs(v32 - v64)))
+    lim = max(1e-3 * sig, 1e-5 * float(np.abs(v64).max()))
+    step = block or len(v64)
+    same, loss = 0, 0.0
+    for i in range(0, len(v64), step):
+        a, b = v32[i:i + step], v64[i:i + step]
+        same += int(np.argmax(a)) == int(np.argmax(b))
+        loss = max(loss, float(b.max() - b[np.argmax(a)]))
+    grids = -(-len(v64) // step)
+    log(f"  {tag}: max |v32 - v64| {err:.6g} (limit {lim:.6g}; "
+        f"{err / float(np.abs(v64).max()):.3g} of max |v64|); argmax the same "
+        f"in {same} of {grids} grids, the f32 picks at most {loss:.6g} below "
+        f"their grid's best f64 value; whole batch {int(np.argmax(v32))} / "
+        f"{int(np.argmax(v64))}")
+    if not err < lim:
+        raise AssertionError(f"phase 12: the f32 {tag} fails JAX's error bound")
+    if block is None and same != grids:
+        raise AssertionError(f"phase 12: the f32 {tag} moves JAX's argmax")
+    if loss > err:
+        raise AssertionError(f"phase 12: an f32 pick of the {tag} lies {loss} "
+                             f"below its grid's best, past the error {err}")
+
+
+def wide_fit(workdir, label, files, min_work):
+    """``estimate --em-iterations 2 --device cuda`` through the CLI on the
+    wide sample with the f32 M-step's gate at ``min_work``
+    (``fast_mstep_gate``); prints each
+    stage-2 EM iteration's E-step and M-step seconds, its Q batches and
+    candidates (coarse and exact apart, f32 where the program ran) and its
+    M-step's peak device memory.  Returns (analysis, y, f32 program runs)."""
+    import torch
+
+    from smcpp_tpu_torch.commands import main as cli
+    from smcpp_tpu_torch.inference import manager as mg
+
+    out = os.path.join(workdir, f"wide_{label}")
+    estep, calls = [], []
+    orig_estep = mg.OnePopInferenceManager.E_step
+    orig_qbatch = mg.OnePopInferenceManager.Q_batch
+
+    held = [0]  # bytes allocated when the last E-step ended
+
+    def timed_estep(self):
+        torch.cuda.synchronize()
+        # the M-step's peak: since the last E-step, above what it held then
+        peak = (torch.cuda.max_memory_allocated(), held[0])
+        t = time.perf_counter()
+        res = orig_estep(self)
+        torch.cuda.synchronize()
+        estep.append((len(self.hidden_states) - 1, t, time.perf_counter(), peak))
+        torch.cuda.reset_peak_memory_stats()
+        held[0] = torch.cuda.memory_allocated()
+        return res
+
+    def counted_qbatch(self, ys=None, rhos=None, theta=None, alpha=None,
+                       fast_ok=False):
+        rows = len(ys) if ys is not None else len(rhos)
+        calls.append((len(self.hidden_states) - 1, time.perf_counter(),
+                      bool(fast_ok), bool(fast_ok and self._use_fast_mstep()),
+                      rows))
+        return orig_qbatch(self, ys, rhos, theta, alpha, fast_ok)
+
+    mg.OnePopInferenceManager.E_step = timed_estep
+    mg.OnePopInferenceManager.Q_batch = counted_qbatch
+    for p in mg.FAST_PROGRAMS:
+        p.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with fast_mstep_gate(min_work):
+            analysis = cli.main([
+                "estimate", "--device", "cuda", "--em-iterations", "2",
+                "-o", out, "1.25e-8", *files,
+            ])
+            im = analysis._ims[("pop1",)]
+            work, on = mstep_gate(f"fit {label} (the gate "
+                                  f"{'closed by hand' if min_work else 'as is'})",
+                                  im)
+    finally:
+        mg.OnePopInferenceManager.E_step = orig_estep
+        mg.OnePopInferenceManager.Q_batch = orig_qbatch
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    last_peak = (torch.cuda.max_memory_allocated(), held[0])
+    ran = {p.name: p.launches for p in mg.FAST_PROGRAMS}
+
+    with open(os.path.join(out, "model.final.json")) as f:
+        d = json.load(f)
+    y = np.asarray(d["model"]["y"], float)
+    if not (np.all(np.isfinite(y)) and np.isfinite(d["rho"]) and d["rho"] > 0):
+        raise AssertionError(f"phase 12 ({label}): model.final.json is not finite: {d}")
+    est2 = [e for e in estep if e[0] > 1]
+    log(f"fit {label}: {t_end - t0:.2f} s, stage 2 from {est2[0][1] - t0:.2f} s; "
+        f"M = {est2[0][0]}; f32 program runs {ran} [{CARD}]")
+    for i, (_, _, e_end, _) in enumerate(est2[1:], 1):
+        nxt = est2[i + 1] if i + 1 < len(est2) else None
+        m_end = nxt[1] if nxt else t_end
+        peak = nxt[3] if nxt else last_peak
+        mine = [c for c in calls if c[0] > 1 and e_end <= c[1] < m_end]
+        coarse = [c for c in mine if c[2]]
+        exact = [c for c in mine if not c[2]]
+        f32 = [c for c in coarse if c[3]]
+        log(f"  EM iteration {i - 1}: E-step {e_end - est2[i][1]:.3f} s, M-step "
+            f"{m_end - e_end:.3f} s; Q batches coarse {len(coarse)} "
+            f"({sum(c[4] for c in coarse)} candidates, {len(f32)} as f32), "
+            f"exact {len(exact)} ({sum(c[4] for c in exact)} candidates); "
+            f"M-step peak {peak[0] / 1e9:.3f} GB, {(peak[0] - peak[1]) / 1e9:.3f} "
+            f"above what the process held as it began [{CARD}]")
+    ll = analysis.loglik()
+    log(f"  final loglik {ll:.6f}, rho {d['rho']:.6g}, "
+        f"y {np.round(y, 4).tolist()}")
+    return analysis, y, ran, on, ll
+
+
+def wide_sample(workdir):
+    """Phase 12: 2 contigs x WIDE_BP at n = WIDE_N from the slice's truth
+    (theta = rho = 2.5e-4, seeds WIDE_SEEDS), fitted twice through the CLI:
+    at the defaults (the f32 M-step engaged) and with the gate closed.
+    Checks both fits finite, the f32 programs run in the first and not in
+    the second, JAX's rule on the card on the first fit's manager (its last
+    E-step's statistics, ``qbatch_rule``): one coarse batch of the
+    optimizer's prefetch shape and one rho batch of 12 over the optimizer's
+    rho window, and the two fits' log-likelihoods within 1e-4 relative (the
+    EM's ftol, the CPU fits' bound in tests/test_torch_fast_mstep.py)."""
+    t0 = time.perf_counter()
+    files = [simulate(workdir, f"wide{i}", WIDE_BP, seed, n=WIDE_N)
+             for i, seed in enumerate(WIDE_SEEDS)]
+    log(f"phase 12 (wide sample): simulated 2 contigs x {WIDE_BP / 1e6:.0f} "
+        f"Mbp, n={WIDE_N}: {time.perf_counter() - t0:.1f} s")
+    a32, y32, ran32, on32, ll32 = wide_fit(workdir, "f32", files, None)
+    if not on32 or ran32["q_batch32"] <= 0:
+        raise AssertionError(f"phase 12: the f32 M-step did not engage: {ran32}")
+    im = a32._ims[("pop1",)]
+    ys = coarse_rows(im)
+    qbatch_rule(f"coarse batch of {len(ys)} rows",
+                im.Q_batch(ys=ys, fast_ok=True), im.Q_batch(ys=ys),
+                block=COARSE_ROWS)
+    rhos = np.geomspace(im.theta / 100, im.theta * 100, 12)
+    qbatch_rule("rho batch of 12", im.Q_batch(rhos=rhos, fast_ok=True),
+                im.Q_batch(rhos=rhos))
+    mstep_crossover(f"phase 12 (n = {WIDE_N})", im)
+    del a32, im
+    _, y64, ran64, on64, ll64 = wide_fit(workdir, "f64", files, float("inf"))
+    if on64 or any(ran64.values()):
+        raise AssertionError(f"phase 12: f32 programs ran, the gate closed: {ran64}")
+    log(f"  largest |y_f32 - y_f64| {np.abs(y32 - y64).max():.6g}; "
+        f"log-likelihoods {abs(ll32 - ll64) / abs(ll64):.3g} apart (relative)")
+    if not abs(ll32 - ll64) <= 1e-4 * abs(ll64):
+        raise AssertionError(f"phase 12: the fits' log-likelihoods part: "
+                             f"{ll32} / {ll64}")
+    log(f"phase 12 (wide sample): {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     card()
     import torch
@@ -3283,6 +3603,8 @@ def main():
         t0 = time.perf_counter()
         over_launches, over_records = over_budget_posterior(workdir, model_json)
         log(f"phase 11 (over-budget posterior): {time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory() as w2:
+            wide_sample(w2)
     from smcpp_tpu_torch.ops import window_kernel as wk
 
     # K1-K3 and K6 from the estimate path, K2g, K4, K5 and K7 from the

@@ -7,8 +7,10 @@ flow (SMC++ smcpp/optimize/optimizers.py, optimize/plugins/): per
 EM iteration an E-step, scalar pre-M-step optimizations (rho, global scale),
 then per-coordinate searches over the spline knot values.
 
-"coarse" Q batches (``Q_batch(..., coarse=True)``) ran in f32 on the TPU; the
-port evaluates every batch in f64, so coarse and exact values coincide.
+"coarse" Q batches (``Q_batch(..., coarse=True)``) only position the
+bracketing grids: on a GPU past the manager's size gate they run as f32
+programs (manager ``_use_fast_mstep``), elsewhere in f64.  Every value that
+decides (an accept, a returned optimum, termination) is an f64 batch.
 """
 
 import logging
