@@ -71,7 +71,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    ``posterior --device cuda --map --intervals`` at M = 32 on the 100 Mbp
    joint contig with the split's model: the npz checked as in phase 5, K3,
    K6, K1, K2, K2g, K4, K7 and K5 launched on the joint emission table,
-   the decode's and the Viterbi's phases, every kernel against its plain
+   the uncached tensors() calls of the split and the posterior, the
+   manager's tensors() through the traced joint CSFS (ops/jcsfs_traced.py)
+   timed uncached beside the eager host route and held to the same route
+   on CPU tensors (rtol 1e-9 / atol 1e-14) and to the eager route
+   (``twopop_tensors``), the decode's and the Viterbi's phases, every
+   kernel against its plain
    version on the two-population manager's own inputs (as in phase 5), and
    the window decode against the f64 span oracle on a probe of 4000 rows
    within 5e-2 (``twopop_probe``).  Alone:
@@ -2563,30 +2568,120 @@ def twopop_probe(im, data):
         raise AssertionError(f"two-population decode {err:.3e} from the f64 oracle")
 
 
+def _uncached_ms(im, fn):
+    "One uncached call of ``fn`` (the value cache cleared): (result, ms)."
+    import torch
+
+    im._tensors_cache = (None, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _allclose_ratio(got, want, rtol, atol):
+    "max |got - want| / (atol + rtol |want|): within the bound when <= 1."
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
+def twopop_tensors(im):
+    """The two-population posterior manager's tensors() on the card,
+    uncached: the traced route (ops/jcsfs_traced.py) on its first call,
+    which builds its device constants and the pop-2 splice, then the median
+    of 5 with the value cache cleared (the constants and the splice kept)
+    and of 5 with the splice cleared too, beside the eager host route
+    (ops/jcsfs.py); then the traced route on the card against the same
+    route on CPU tensors of the same manager (f64 against f64: pi, T and E
+    within rtol 1e-9 / atol 1e-14, the tests' atol: the smallest entries
+    come out of sums of O(1) terms whose last ulp differs between the
+    card's and the host's exp and summation order), and
+    against the eager route at tests/test_jcsfs_traced.py's bounds (pi rtol
+    1e-10 / atol 1e-14, E and pi T rtol 1e-6 / atol 1e-12)."""
+    import copy
+
+    import torch
+
+    if not im._traced_tensors_ok():
+        raise AssertionError("the two-population posterior must take the traced route")
+    im._traced_cache.clear()
+    im._splice_memo = None
+    traced, first = _uncached_ms(im, im.tensors)
+    warm = [_uncached_ms(im, im.tensors)[1] for _ in range(5)]
+    cold = []
+    for _ in range(5):
+        im._splice_memo = None
+        cold.append(_uncached_ms(im, im.tensors)[1])
+    if len(im._traced_cache) != 1:
+        raise AssertionError(f"{len(im._traced_cache)} TracedJointCSFS built, not 1")
+    with torch.no_grad():
+        eager, e_first = _uncached_ms(im, im._tensors_eager)
+        e_rest = [_uncached_ms(im, im._tensors_eager)[1] for _ in range(2)]
+    log(f"  tensors() uncached, traced route on the card: first call "
+        f"{first:.2f} ms (the constants built), median of 5 {np.median(warm):.2f} ms "
+        f"({', '.join(f'{t:.2f}' for t in warm)}), with the pop-2 splice "
+        f"re-evaluated {np.median(cold):.2f} ms; eager host route (ops/jcsfs.py) "
+        f"{e_first:.1f} ms, then {', '.join(f'{t:.1f}' for t in e_rest)} ms")
+
+    c = copy.copy(im)
+    c._device = torch.device("cpu")
+    c._traced_cache = {}
+    c._tensors_cache = (None, None)
+    cpu = [x.numpy() for x in c.tensors()]
+    card = [x.cpu().numpy() for x in traced]
+    ratio = {n: _allclose_ratio(a, b, 1e-9, 1e-14)
+             for n, a, b in zip(("pi", "T", "E"), card, cpu)}
+    log("  traced route, card against CPU tensors (f64, rtol 1e-9 / atol 1e-14): "
+        + ", ".join(f"{n} largest relative {float(np.max(np.abs(a - b) / b)):.3e}, "
+                    f"absolute {float(np.max(np.abs(a - b))):.3e} ({ratio[n]:.3f} of "
+                    f"the bound)" for n, a, b in zip(("pi", "T", "E"), card, cpu)))
+    if not (all(np.all(np.isfinite(x)) for x in card) and max(ratio.values()) <= 1):
+        raise AssertionError(f"traced tensors() on the card differ from the CPU's: {ratio}")
+
+    (pi_t, T_t, E_t), (pi_e, T_e, E_e) = card, [x.cpu().numpy() for x in eager]
+    ratio = {
+        "pi": _allclose_ratio(pi_t, pi_e, 1e-10, 1e-14),
+        "E": _allclose_ratio(E_t, E_e, 1e-6, 1e-12),
+        "pi T": _allclose_ratio(pi_t[:, None] * T_t, pi_e[:, None] * T_e, 1e-6, 1e-12),
+    }
+    rel = {"pi": np.abs(pi_t - pi_e) / pi_e, "E": np.abs(E_t - E_e) / E_e,
+           "pi T": np.abs(pi_t[:, None] * T_t - pi_e[:, None] * T_e)
+           / (pi_e[:, None] * T_e)}
+    log("  traced against eager route (pi rtol 1e-10 / atol 1e-14, E and pi T "
+        "rtol 1e-6 / atol 1e-12): " + ", ".join(
+            f"{n} largest relative {float(rel[n].max()):.3e} ({ratio[n]:.3f} of "
+            f"the bound)" for n in ratio))
+    if max(ratio.values()) > 1:
+        raise AssertionError(f"traced tensors() outside the eager route's bounds: {ratio}")
+
+
 def twopop_path(workdir):
     """Phase 8: two populations.  Simulates the joint data (``twopop_data``),
     runs ``split --device cuda`` (``twopop_split``), then ``posterior
     --device cuda --map --intervals`` at M = 32 on the first joint contig
     with the split's model (``cli_posterior``: the window E-step, decode and
-    Viterbi on the joint emission table, every kernel launched); prints the
-    decode's and the Viterbi's phases, holds every kernel against its plain
-    version on the two-population manager's own inputs
-    (``compare_posterior``) and the window decode against the f64 span
-    oracle (``twopop_probe``)."""
+    Viterbi on the joint emission table, every kernel launched); prints how
+    many uncached tensors() calls each made, times and checks tensors()
+    (``twopop_tensors``), prints the decode's and the Viterbi's phases,
+    holds every kernel against its plain version on the two-population
+    manager's own inputs (``compare_posterior``) and the window decode
+    against the f64 span oracle (``twopop_probe``)."""
+    from smcpp_tpu_torch.inference import manager as tman
+
     t0 = time.perf_counter()
     post, split, fits = twopop_data(workdir)
+    tman.TENSORS.launches = 0
     model_json = twopop_split(workdir, split, fits)
+    n_split = tman.TENSORS.launches
     out = os.path.join(workdir, "twopop.npz")
+    tman.TENSORS.launches = 0
     im, launches = cli_posterior("posterior [two populations]", out, model_json,
                                  post)
     log(f"  joint emission table: {im.em_idx.n_keys} keys x M = "
         f"{len(im.hidden_states) - 1} ({im.em_idx.n_keys * (len(im.hidden_states) - 1) * 4} "
-        f"bytes in f32), n = {im.n}, (a1, a2) = {(im.a1, im.a2)}")
-    t1 = time.perf_counter()
-    im._tensors_cache = (None, None)
-    im.tensors()
-    log(f"  tensors() with the host JCSFS, uncached: "
-        f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+        f"bytes in f32), n = {im.n}, (a1, a2) = {(im.a1, im.a2)}; uncached "
+        f"tensors() calls: split {n_split}, posterior {tman.TENSORS.launches}")
+    twopop_tensors(im)
     pi, T, E = (x.float().contiguous() for x in im.tensors())
     posterior_breakdown(im, pi, T, E)
     compare_posterior(im, pi, T, E)

@@ -18,9 +18,10 @@ decode and the MAP paths; they differ in the emission index and in how
   (``map_paths``) through the window kernels;
 * the span kernel (ops/hmm.py) where the cost model picks it, and the
   row-level decode and Viterbi past the window gates and at M = 1;
-* two populations: the joint CSFS (ops/jcsfs.py) on the host in float64,
-  then (pi, T, E) in float64 on the manager's device; the split-time
-  objective at trivial hidden states (ops/split_objective.py).
+* two populations: (pi, T, E) in float64 on the manager's device, the
+  joint CSFS included (ops/jcsfs_traced.py; ops/jcsfs.py on the host for
+  marginals that are not spline models); the split-time objective at
+  trivial hidden states (ops/split_objective.py).
 
 Everything runs on the ``device`` the manager was built with.  Asking for
 CUDA where there is none raises; nothing falls back to the CPU.
@@ -85,9 +86,10 @@ def q_chunk_rows(n, K, n_keys, M, itemsize, budget):
 
 
 class _Program:
-    """An f32 M-step program's Python face: ``launches`` counts the calls
-    that ran it (incremented where it runs, nowhere else), as
-    ops/window_kernel.py counts kernel launches."""
+    """A program's Python face (an f32 M-step program, the two-population
+    tensors() build): ``launches`` counts the calls that ran it
+    (incremented where it runs, nowhere else), as ops/window_kernel.py
+    counts kernel launches."""
 
     def __init__(self, name):
         self.name = name
@@ -97,6 +99,8 @@ class _Program:
 Q_BATCH32 = _Program("q_batch32")
 Q_RHO32 = _Program("q_rho_batch32")
 FAST_PROGRAMS = (Q_BATCH32, Q_RHO32)
+# the two-population manager's uncached tensors() calls
+TENSORS = _Program("twopop_tensors")
 
 
 @contextlib.contextmanager
@@ -907,9 +911,10 @@ class TwoPopInferenceManager(_InferenceManager):
     """Two-population inference manager: joint-CSFS emissions over (a1, b1,
     a2, b2) keys, the distinguished model's transition and initial
     distribution (reference: src/inference_manager.cpp:525-550 and
-    src/jcsfs.cpp).  The split workflow searches only the scalar split time,
-    so ``tensors()`` evaluates the JCSFS eagerly on the host (ops/jcsfs.py)
-    and the rest of (pi, T, E) in f64 on the manager's device."""
+    src/jcsfs.cpp).  ``tensors()`` builds (pi, T, E) in f64 on the
+    manager's device: through the joint CSFS of ops/jcsfs_traced.py when
+    both marginals are spline models (the route the reference package
+    takes by default), else through the host JCSFS of ops/jcsfs.py."""
 
     def __init__(
         self,
@@ -949,21 +954,92 @@ class TwoPopInferenceManager(_InferenceManager):
             self.n1, self.n2, self.a1, self.a2, self.hidden_states, K=K
         )
         self._tensors_cache = (None, None)
+        self._splice_memo = None
+        self._traced_cache = {}
 
     def set_model(self, model):
         self.model = model
 
     def tensors(self):
-        """(pi, T, E) at the current parameters, f64 on the manager's device:
-        the JCSFS on the host (ops/jcsfs.py), then the distinguished
-        marginal's pi and T, theta and the emission index on the device.
-        One entry is cached per (model parameters, split, theta, rho, alpha),
-        so the posterior's repeated calls reuse the JCSFS."""
+        """(pi, T, E) at the current parameters, f64 on the manager's device.
+        One entry is cached per (model parameters, split, theta, rho,
+        alpha), so the posterior's repeated calls reuse it; each uncached
+        call counts in ``TENSORS.launches``."""
         model = self.model
         key = (json.dumps(model.to_dict(), sort_keys=True), self.theta,
                self.rho, self.alpha)
         if self._tensors_cache[0] == key:
             return self._tensors_cache[1]
+        with torch.no_grad():
+            out = (self._tensors_traced() if self._traced_tensors_ok()
+                   else self._tensors_eager())
+        TENSORS.launches += 1
+        self._tensors_cache = (key, out)
+        return out
+
+    def _traced_tensors_ok(self):
+        """The joint CSFS of ops/jcsfs_traced.py needs spline marginals (their
+        static piece grids); the route follows the model alone."""
+        from ..models import SMCModel
+
+        m = self.model
+        return (
+            isinstance(m, SMCTwoPopulationModel)
+            and isinstance(m.model1, SMCModel)
+            and isinstance(m.model2, SMCModel)
+        )
+
+    def _tensors_traced(self):
+        """(pi, T, E) through ``TracedJointCSFS`` on the manager's device.
+
+        The pop-2 marginal is the reference's for_pop splice (model2 below
+        the split, model1 above, re-fit through a spline); its knots move
+        with the split, so its stepwise values are evaluated on the host,
+        memoised on (y1, y2, split), and passed as a size vector on the
+        splice's own piece grid.  One ``TracedJointCSFS`` (its constants on
+        the device) is kept per static key, so a split search or a change
+        of y builds nothing.  pi, T and the average coalescence times come
+        from model1's grid when the distinguished pair is together, from
+        ``apart_grid_hs`` (APART_FIN below the split) when apart."""
+        from ..ops import jcsfs_traced as jt
+
+        model = self.model
+        m1 = model.model1
+        sk = (m1.y.tobytes(), model.model2.y.tobytes(), float(model.split))
+        if self._splice_memo is None or self._splice_memo[0] != sk:
+            m2s = _marginal_model(model, model.pids[1])
+            self._splice_memo = (sk, m2s, np.asarray(m2s.stepwise_values(),
+                                                     np.float64))
+        _, m2s, m2s_vals = self._splice_memo
+        key = (m1.s.tobytes(), m2s.s.tobytes(), self.hidden_states.tobytes(),
+               self.theta, self.alpha, m1._spline_name, len(m1.y))
+        entry = self._traced_cache.get(key)
+        if entry is None:
+            tj = jt.TracedJointCSFS(
+                self.n1, self.n2, self.a1, self.a2, m1.s, m2s.s,
+                self.hidden_states, K=self._jcsfs.K, device=self._device,
+            )
+            entry = self._traced_cache[key] = (
+                tj, grid_mod.make_time_grid(m1.s, self.hidden_states))
+        tj, grid1 = entry
+        split = float(model.split)
+        a1v = m1.stepwise_values_fn(self._f64(m1.y))
+        J = tj.compute(a1v, self._f64(m2s_vals), split)
+        if self.a1 == 2:
+            a, grid = a1v, grid1
+        else:
+            a, grid = jt.apart_grid_hs(a1v, tj.part1, split, self.hidden_states)
+        return _hmm_tensors(self.em_idx, a, grid, self._f64(self.rho), J,
+                            self.theta, self.alpha)
+
+    def _tensors_eager(self):
+        """(pi, T, E) through the host JCSFS (ops/jcsfs.py, NumPy f64), then
+        the distinguished marginal's pi and T, theta and the emission index
+        on the device: the route for marginals that are not spline
+        models."""
+        from ..ops.jcsfs_traced import APART_FIN
+
+        model = self.model
         # the distinguished lineages apart (a1 = a2 = 1): the model with an
         # infinite size before the split
         dm = _marginal_model(model, None if self.a1 == 1 else model.pids[0])
@@ -975,20 +1051,12 @@ class TwoPopInferenceManager(_InferenceManager):
             (np.asarray(m2.stepwise_values(), dtype=np.float64), m2.s),
             model.split,
         )  # (M, a1+1, D)
-        # A large FINITE stand-in for the apart model's infinite size: 1e12
-        # leaves < 1e-12 spurious coalescent mass over any O(1) interval,
-        # while 1e300 overflows intermediate products at M > 1 (NaN
-        # transition rows on the M = 32 posterior grid; manager.py:1815-1822
-        # of the reference package).
-        a_fin = np.where(np.isinf(a), 1e12, a)
+        a_fin = np.where(np.isinf(a), APART_FIN, a)
         grid = grid_mod.make_time_grid(dm.s, self.hidden_states)
-        with torch.no_grad():
-            out = _hmm_tensors(
-                self.em_idx, self._f64(a_fin), grid, self._f64(self.rho),
-                self._f64(J), self.theta, self.alpha,
-            )
-        self._tensors_cache = (key, out)
-        return out
+        return _hmm_tensors(
+            self.em_idx, self._f64(a_fin), grid, self._f64(self.rho),
+            self._f64(J), self.theta, self.alpha,
+        )
 
     def Q(self, **kw):
         "Q at the current parameters (the split is the only free one)."

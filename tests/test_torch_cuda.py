@@ -1450,6 +1450,37 @@ def test_twopop_window_estep_and_decode_on_card(dev, M):
     assert (p == cim.map_paths()[0]).mean() >= 0.999
 
 
+@pytest.mark.parametrize("a1,a2", [(2, 0), (1, 1)])
+def test_twopop_traced_tensors_on_card(dev, a1, a2):
+    """The traced joint CSFS (ops/jcsfs_traced.py) with its constants on the
+    card against the same code on CPU tensors, f64 against f64 at rtol
+    1e-9 / atol 1e-14: J at splits below, inside and above the hidden
+    states (n1 = 10, n2 = 8, M = 32); the manager's tensors() (pi, T, E)
+    when together.  The atol is the CPU tests': J's smallest entries come
+    out of sums of O(1) terms whose last ulp differs between the card's and
+    the host's exp and summation order (measured 6.2e-15 absolute, 0.17 of
+    the bound; up to 6.6e-5 relative on entries near 1e-12)."""
+    from smcpp_tpu_torch.ops.jcsfs_traced import TracedJointCSFS
+
+    (gim, cim), _ = _twopop_managers(32, dev, L=20_000)
+    m1, m2 = gim.model.model1, gim.model.model2
+    tjs = [TracedJointCSFS(10, 8, a1, a2, m1.s, m2.s, gim.hidden_states,
+                           device=d) for d in (dev, torch.device("cpu"))]
+    assert tjs[0]._H1.device.type == "cuda"
+    for split in (0.01, 0.4, 5.0):
+        g, c = (tj.compute(m1.stepwise_values(), m2.stepwise_values(), split)
+                for tj in tjs)
+        assert g.device.type == "cuda" and torch.isfinite(g).all()
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-9,
+                                   atol=1e-14)
+    if a1 == 2:
+        assert gim._traced_tensors_ok()
+        for a, b in zip(gim.tensors(), cim.tensors()):
+            assert a.device.type == "cuda"
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-9,
+                                       atol=1e-14)
+
+
 def test_split_objective_on_card(dev):
     """SplitObjective and MarginalSplitObjective on the card against the CPU
     at rtol 1e-9 (both float64), values and dQ/dsplit, on 16 candidates."""

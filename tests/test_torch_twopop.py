@@ -3,21 +3,19 @@ the CPU.
 
 * ``SMCTwoPopulationModel``: ``for_pop`` (the apart model, model1, the pop-2
   splice) and the JSON round trip, read across the two packages;
-* ``TwoPopInferenceManager.tensors()`` against JAX's eager path
-  (SMCPP_TPU_TRACED_JCSFS=0) at rtol 1e-10 (both float64; pi, T and E also
-  at atol 1e-14 as tests/test_torch_qfamily.py holds the one-population
-  tensors: their smallest entries come out of sums of O(1) terms whose
-  last-ulp rounding depends on the order), except the T rows of the apart
-  model's below-split intervals, which both paths know to about 3 digits
-  (held at rtol 1e-2; they carry under 1e-11 of pi); and against JAX's
-  default traced path at tests/test_jcsfs_traced.py's bounds (pi rtol 1e-10,
-  E rtol 1e-6, pi T rtol 1e-6): the traced path takes the exact eps -> 0
-  below-split limit where the eager path, and the port, take a two-sided
-  1e-6 interval;
-* the window E-step's log-likelihood and statistics against JAX's (eager
-  tensors, both at 'highest'), at the bounds tests/test_torch_estimate.py
-  holds the one-population manager to: ll rtol 1e-6, statistics rtol 1e-4
-  and atol 1e-6 of the largest entry;
+* the port's eager ``tensors()`` route (``_tensors_eager``, ops/jcsfs.py)
+  against JAX's eager path (SMCPP_TPU_TRACED_JCSFS=0) at rtol 1e-10 (both
+  float64; pi, T and E also at atol 1e-14 as tests/test_torch_qfamily.py
+  holds the one-population tensors: their smallest entries come out of sums
+  of O(1) terms whose last-ulp rounding depends on the order), except the T
+  rows of the apart model's below-split intervals, which both paths know to
+  about 3 digits (held at rtol 1e-2; they carry under 1e-11 of pi); and the
+  default route, ops/jcsfs_traced.py, against JAX's default traced path at
+  the same bounds (pi T also at tests/test_jcsfs_traced.py's rtol 1e-6);
+* the window E-step's log-likelihood and statistics against JAX's (both
+  packages' default traced tensors, both at 'highest'), at the bounds
+  tests/test_torch_estimate.py holds the one-population manager to: ll rtol
+  1e-6, statistics rtol 1e-4 and atol 1e-6 of the largest entry;
 * the four tests of tests/test_twopop_kernel.py against the port: the
   window E-step against the span E-step (both f32 here: ll rtol 1e-6,
   statistics rtol 1e-4 / atol 1e-6 of the largest entry; the production
@@ -128,11 +126,13 @@ CASES = [(0.25, 6), (0.005, 6), (2.0, 6), (0.9999999, 8)]
 @pytest.mark.parametrize("a1,a2", [(2, 0), (1, 1)])
 @pytest.mark.parametrize("split,M", CASES)
 def test_tensors_match_jax_eager(a1, a2, split, M, monkeypatch):
+    "The port's eager route (ops/jcsfs.py), called directly, against JAX's."
     jim, tim = _managers(a1, a2, M, split)
     monkeypatch.setenv("SMCPP_TPU_TRACED_JCSFS", "0")
     assert not jim._traced_tensors_ok()
     want = [np.asarray(x) for x in jim.tensors()]
-    got = [x.numpy() for x in tim.tensors()]
+    with torch.no_grad():
+        got = [x.numpy() for x in tim._tensors_eager()]
     assert all(g.dtype == np.float64 for g in got)
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -154,20 +154,25 @@ def test_tensors_match_jax_eager(a1, a2, split, M, monkeypatch):
 @pytest.mark.parametrize("a1,a2", [(2, 0), (1, 1)])
 @pytest.mark.parametrize("split,M", [(0.25, 6), (2.0, 6)])
 def test_tensors_near_jax_traced(a1, a2, split, M):
+    "tensors() (the traced route) against JAX's default traced tensors()."
     jim, tim = _managers(a1, a2, M, split)
-    assert jim._traced_tensors_ok()
+    assert jim._traced_tensors_ok() and tim._traced_tensors_ok()
     pi_j, T_j, E_j = [np.asarray(x) for x in jim.tensors()]
     pi_t, T_t, E_t = [x.numpy() for x in tim.tensors()]
     np.testing.assert_allclose(pi_t, pi_j, rtol=1e-10, atol=1e-14)
-    np.testing.assert_allclose(E_t, E_j, rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(E_t, E_j, rtol=1e-10, atol=1e-14)
+    live = pi_j > 1e-10
+    np.testing.assert_allclose(T_t[live], T_j[live], rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(T_t[~live], T_j[~live], rtol=1e-2)
     np.testing.assert_allclose(pi_t[:, None] * T_t, pi_j[:, None] * T_j,
                                rtol=1e-6, atol=1e-12)
 
 
 @pytest.mark.parametrize("a1,a2", [(2, 0), (1, 1)])
-def test_estep_matches_jax(a1, a2, monkeypatch):
-    monkeypatch.setenv("SMCPP_TPU_TRACED_JCSFS", "0")
+def test_estep_matches_jax(a1, a2):
+    "Both packages' default (traced) routes into the window E-step."
     jim, tim = _managers(a1, a2, 6, 0.25, precision="highest")
+    assert jim._traced_tensors_ok() and tim._traced_tensors_ok()
     assert jim._use_windows and tim._use_windows
     ll_j, ll_t = jim.E_step(), tim.E_step()
     np.testing.assert_allclose(ll_t, ll_j, rtol=1e-6)
