@@ -4,6 +4,7 @@ import argparse
 import logging
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -96,6 +97,35 @@ class EstimationCommand(Command):
         fh.setLevel(logging.DEBUG)
         logging.getLogger().addHandler(fh)
         logging.getLogger(__name__).debug(sys.argv)
+
+
+def run_profiled(work, args):
+    """``work()``, the command's work; with ``--profile-dir``, under
+    torch.profiler (host activity and, on a card, the device's), its Chrome
+    trace written to ``profile_dir``/trace.json with the program's spans
+    (smcpp_tpu_torch/trace.py) added as events on the threads that ran
+    them.  Returns what ``work`` returns."""
+    if not args.profile_dir:
+        return work()
+    import torch
+
+    from .. import trace
+
+    tp = torch.profiler
+    os.makedirs(args.profile_dir, exist_ok=True)
+    activities = [tp.ProfilerActivity.CPU]
+    if torch.device(args.device).type == "cuda":
+        activities.append(tp.ProfilerActivity.CUDA)
+    with tp.profile(activities=activities) as prof:
+        t0 = time.time_ns()
+        out = work()
+        t1 = time.time_ns()
+    path = os.path.join(args.profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    trace.add_to_chrome_trace(path, trace.records(t0, t1))
+    trace.clear()
+    logging.getLogger(__name__).info("profiler trace written to %s", path)
+    return out
 
 
 def add_common_estimation_args(parser):

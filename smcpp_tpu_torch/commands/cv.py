@@ -66,52 +66,58 @@ class Cv(command.EstimationCommand, command.ConsoleCommand):
         folds = np.array_split(np.arange(L), args.folds)
         basedir = args.outdir
         best_models = [None] * len(folds)
-        d = None
 
         def fold_path(i):
             return os.path.join(basedir, f"fold{i}")
 
-        for i, fold in enumerate(folds):
-            if args.fold is not None and args.fold != i:
-                continue
-            fp = fold_path(i)
-            with mark_completed(fp) as p:
-                if p.exists():
-                    with open(os.path.join(fp, "model.best.json")) as f:
-                        d = json.load(f)
-                        best_models[i] = model_mod.SMCModel.from_dict(d["model"])
+        def fit_folds():
+            """Fit and score each fold not yet done; returns the last
+            best model's record."""
+            d = None
+            for i, fold in enumerate(folds):
+                if args.fold is not None and args.fold != i:
                     continue
-                args.outdir = fp
-                os.makedirs(args.outdir, exist_ok=True)
-                test = Analysis(
-                    [args.data[j] for j in range(L) if j in fold], args
-                )
-                best = float("-inf")
-                for j in args.rp_values:
-                    args.regularization_penalty = j
-                    train = Analysis(
-                        [args.data[k] for k in range(L) if k not in fold], args
+                fp = fold_path(i)
+                with mark_completed(fp) as p:
+                    if p.exists():
+                        with open(os.path.join(fp, "model.best.json")) as f:
+                            d = json.load(f)
+                            best_models[i] = model_mod.SMCModel.from_dict(d["model"])
+                        continue
+                    args.outdir = fp
+                    os.makedirs(args.outdir, exist_ok=True)
+                    test = Analysis(
+                        [args.data[j] for j in range(L) if j in fold], args
                     )
-                    train.run()
-                    test.model = train.model
-                    test.E_step()
-                    tl = test.loglik(False)
-                    logger.info("rp=%d train=%f test=%f", j,
-                                train.loglik(True), tl)
-                    if tl > best:
-                        best = tl
-                        best_models[i] = train.model
-                        f = os.path.join(args.outdir, "model.best.json")
-                        shutil.copyfile(
-                            os.path.join(args.outdir, "model.final.json"), f
+                    best = float("-inf")
+                    for j in args.rp_values:
+                        args.regularization_penalty = j
+                        train = Analysis(
+                            [args.data[k] for k in range(L) if k not in fold], args
                         )
-                        with open(f) as fh:
-                            d = json.load(fh)
-                # an analysis and its optimizer refer to each other: collect
-                # them now, so that one fold's device tensors are freed
-                # before the next fold's are allocated
-                del test, train
-                gc.collect()
+                        train.run()
+                        test.model = train.model
+                        test.E_step()
+                        tl = test.loglik(False)
+                        logger.info("rp=%d train=%f test=%f", j,
+                                    train.loglik(True), tl)
+                        if tl > best:
+                            best = tl
+                            best_models[i] = train.model
+                            f = os.path.join(args.outdir, "model.best.json")
+                            shutil.copyfile(
+                                os.path.join(args.outdir, "model.final.json"), f
+                            )
+                            with open(f) as fh:
+                                d = json.load(fh)
+                    # an analysis and its optimizer refer to each other: collect
+                    # them now, so that one fold's device tensors are freed
+                    # before the next fold's are allocated
+                    del test, train
+                    gc.collect()
+            return d
+
+        d = command.run_profiled(fit_folds, args)
 
         if args.fold is not None:
             sys.exit(0)

@@ -14,6 +14,7 @@ import sys
 
 import numpy as np
 
+from .. import trace
 from ..data import format as fmt
 from ..inference import estimation
 from ..inference.manager import make_manager
@@ -30,20 +31,21 @@ def posterior_quantiles(gamma, hidden_states, qs):
     Piecewise-linear CDF inversion within each hidden interval; the
     terminal (infinite) interval reports its left edge.  Returns
     (len(qs), L) in coalescent units."""
-    cdf = np.cumsum(gamma, axis=0)  # (M, L)
-    hs = np.asarray(hidden_states)
-    out = np.empty((len(qs), gamma.shape[1]))
-    for qi, q in enumerate(qs):
-        m = np.argmax(cdf >= q, axis=0)  # first interval crossing q
-        prev = np.take_along_axis(
-            np.vstack([np.zeros((1, cdf.shape[1])), cdf]), m[None], 0
-        )[0]
-        g = np.take_along_axis(gamma, m[None], 0)[0]
-        lo, hi = hs[m], hs[m + 1]
-        hi = np.where(np.isinf(hi), lo, hi)
-        frac = np.clip((q - prev) / np.maximum(g, 1e-30), 0.0, 1.0)
-        out[qi] = lo + frac * (hi - lo)
-    return out
+    with trace.span("posterior.quantiles"):
+        cdf = np.cumsum(gamma, axis=0)  # (M, L)
+        hs = np.asarray(hidden_states)
+        out = np.empty((len(qs), gamma.shape[1]))
+        for qi, q in enumerate(qs):
+            m = np.argmax(cdf >= q, axis=0)  # first interval crossing q
+            prev = np.take_along_axis(
+                np.vstack([np.zeros((1, cdf.shape[1])), cdf]), m[None], 0
+            )[0]
+            g = np.take_along_axis(gamma, m[None], 0)[0]
+            lo, hi = hs[m], hs[m + 1]
+            hi = np.where(np.isinf(hi), lo, hi)
+            frac = np.clip((q - prev) / np.maximum(g, 1e-30), 0.0, 1.0)
+            out[qi] = lo + frac * (hi - lo)
+        return out
 
 
 class Posterior(command.Command, command.ConsoleCommand):
@@ -70,6 +72,9 @@ class Posterior(command.Command, command.ConsoleCommand):
                             help="store posterior TMRCA quantiles (e.g. "
                                  "0.025,0.5,0.975) per row as "
                                  "'<path>_quantiles' (coalescent units)")
+        parser.add_argument("--profile-dir", default=None,
+                            help="write a torch.profiler Chrome trace of the "
+                                 "decode here (trace.json)")
         parser.add_argument("model", metavar="model.final.json")
         parser.add_argument("output", metavar="arrays.npz")
         parser.add_argument("data", nargs="+", metavar="data.smc[.gz]")
@@ -79,6 +84,10 @@ class Posterior(command.Command, command.ConsoleCommand):
         command.Command.main(self, args)
         if args.colorbar and not args.heatmap:
             sys.exit("Can't specify --colorbar without --heatmap")
+        return command.run_profiled(lambda: self._decode(args), args)
+
+    def _decode(self, args):
+        "Load, decode and write the npz; returns the inference manager."
         with open(args.model) as f:
             j = json.load(f)
         m = model_from_dict(j["model"])
@@ -141,14 +150,15 @@ class Posterior(command.Command, command.ConsoleCommand):
         im.save_gamma = True
         im.E_step()
         gammas = []
-        for i, g in enumerate(im.gammas):
-            # drop padding rows and normalize columns, matching the
-            # reference's (M, L) layout (posterior.py:95-105)
-            Lr = len(all_obs[i])
-            g = g[:Lr].T
-            colsum = g.sum(axis=0)
-            colsum[colsum == 0] = 1.0
-            gammas.append(g / colsum)
+        with trace.span("posterior.normalise"):
+            for i, g in enumerate(im.gammas):
+                # drop padding rows and normalize columns, matching the
+                # reference's (M, L) layout (posterior.py:95-105)
+                Lr = len(all_obs[i])
+                g = g[:Lr].T
+                colsum = g.sum(axis=0)
+                colsum[colsum == 0] = 1.0
+                gammas.append(g / colsum)
         kwargs = {path: g for path, g in zip(data_keys, gammas)}
         kwargs.update(
             {path + "_sites": o[:, 0] for path, o in zip(data_keys, all_obs)}
@@ -163,7 +173,8 @@ class Posterior(command.Command, command.ConsoleCommand):
                 )
         if not local_data and mesh is not None and mesh.rank != 0:
             return im  # replicated: rank 0 writes what every rank holds
-        np.savez_compressed(out_path, hidden_states=hidden_states, **kwargs)
+        with trace.span("posterior.save"):
+            np.savez_compressed(out_path, hidden_states=hidden_states, **kwargs)
         if args.heatmap and gammas:
             if local_data:
                 base, ext = os.path.splitext(args.heatmap)

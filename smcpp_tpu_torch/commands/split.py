@@ -30,5 +30,5 @@ class Split(command.EstimationCommand, command.ConsoleCommand):
             j = json.load(f)
         args.mu = j["theta"] / 2 / j["model"]["N0"]
         analysis = SplitAnalysis(args.data, args)
-        analysis.run(niter=1)
+        command.run_profiled(lambda: analysis.run(niter=1), args)
         return analysis

@@ -44,6 +44,7 @@ import tempfile
 import numpy as np
 import torch
 
+from .. import trace
 from ..models import SMCTwoPopulationModel
 from ..ops import csfs as csfs_mod
 from ..ops import emission as em_mod
@@ -469,35 +470,42 @@ class _InferenceManager:
 
     # -- E-step ------------------------------------------------------------
     def E_step(self):
-        if len(self.hidden_states) == 2:
-            ll = self._estep_m1()
+        m1 = len(self.hidden_states) == 2
+        route = ("m1" if m1 else "rows" if not self._use_windows
+                 else "windows" if self._alpha_remat is None else "remat")
+        with trace.span("estep." + route):
+            if m1:
+                ll = self._estep_m1()
+                if self.save_gamma:
+                    self.gammas = self._gammas_m1()
+                return ll
+            with trace.span("tensors"):
+                pi, T, E = self.tensors()
+            pi_d, T_d, E_d = (x.float().contiguous() for x in (pi, T, E))
+            mesh = self._mesh
+            if self._use_windows:
+                ll, gamma0, xisum, gamma_sums = wk.estep_direct(
+                    pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
+                    precision=self.precision, alpha_remat=self._alpha_remat,
+                    mesh=mesh,
+                )
+            else:
+                # this rank's contigs; the statistics summed over the ranks in f64
+                ll, gamma0, xisum, gamma_sums = (
+                    mesh_mod.reduce_sum(mesh, x.detach().to(torch.float64))
+                    for x in hmm.estep(pi_d, T_d, E_d, *self._rows(), self._nbits,
+                                       self._chunk, self._row_budget())
+                )
+            with trace.span("pull"):
+                self._ll = float(ll)
+                self._stats = tuple(
+                    x.detach().to(torch.float64).cpu().numpy()
+                    for x in (gamma0, xisum, gamma_sums)
+                )
+            with trace.span("check"):
+                self._check_finite(self._ll, self._stats, pi, T, E)
             if self.save_gamma:
-                self.gammas = self._gammas_m1()
-            return ll
-        pi, T, E = self.tensors()
-        pi_d, T_d, E_d = (x.float().contiguous() for x in (pi, T, E))
-        mesh = self._mesh
-        if self._use_windows:
-            ll, gamma0, xisum, gamma_sums = wk.estep_direct(
-                pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
-                precision=self.precision, alpha_remat=self._alpha_remat,
-                mesh=mesh,
-            )
-        else:
-            # this rank's contigs; the statistics summed over the ranks in f64
-            ll, gamma0, xisum, gamma_sums = (
-                mesh_mod.reduce_sum(mesh, x.detach().to(torch.float64))
-                for x in hmm.estep(pi_d, T_d, E_d, *self._rows(), self._nbits,
-                                   self._chunk, self._row_budget())
-            )
-        self._ll = float(ll)
-        self._stats = tuple(
-            x.detach().to(torch.float64).cpu().numpy()
-            for x in (gamma0, xisum, gamma_sums)
-        )
-        self._check_finite(self._ll, self._stats, pi, T, E)
-        if self.save_gamma:
-            self.gammas = self._compute_gammas(pi_d, T_d, E_d)
+                self.gammas = self._compute_gammas(pi_d, T_d, E_d)
         return self._ll
 
     def _estep_m1(self):
@@ -570,66 +578,93 @@ class _InferenceManager:
         sub-rows summed back to the caller's rows.  The pull is f32 (the
         reference's f16 pull is not ported)."""
         mesh = self._mesh
-        if self._use_windows and self._window_decode_fits():
-            _, g = wk.decode_gammas_windows(
-                pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
-                self._row_ends(), precision=self._decode_precision(), mesh=mesh,
-            )
-            return self._split_rows(g.cpu().numpy())
-        if self._local_data:
-            raise NotImplementedError(
-                "posterior decode under host-local ingestion needs the window "
-                "gamma stream to fit the device budget "
-                "(SMCPP_TPU_ESTREAM_BYTES); raise the budget or run with "
-                "--replicated-data"
-            )
-        # this rank's contigs; every rank's rows gathered in rank order
-        g = mesh_mod.gather_rows(mesh, hmm.decode_gammas(
-            pi_d, T_d, E_d, *self._rows(), self._nbits, self._chunk,
-            self._row_budget(),
-        ))
-        return self._per_input_row(g.to(torch.float32).cpu().numpy())
+        # the route is named once chosen, so that the span holds the whole
+        # call, the choice of the route included
+        with trace.span("decode") as span:
+            if self._use_windows and self._window_decode_fits():
+                span.rename("decode.windows")
+                _, g = wk.decode_gammas_windows(
+                    pi_d, T_d, E_d, self._wkeys, self._wvalid, self._soc,
+                    self._row_ends(), precision=self._decode_precision(), mesh=mesh,
+                )
+                with trace.span("pull"):
+                    g = g.cpu().numpy()
+                with trace.span("split"):
+                    return self._split_rows(g)
+            span.rename("decode.rows")
+            if self._local_data:
+                raise NotImplementedError(
+                    "posterior decode under host-local ingestion needs the window "
+                    "gamma stream to fit the device budget "
+                    "(SMCPP_TPU_ESTREAM_BYTES); raise the budget or run with "
+                    "--replicated-data"
+                )
+            # this rank's contigs; every rank's rows gathered in rank order
+            g = mesh_mod.gather_rows(mesh, hmm.decode_gammas(
+                pi_d, T_d, E_d, *self._rows(), self._nbits, self._chunk,
+                self._row_budget(),
+            ))
+            with trace.span("pull"):
+                g = g.to(torch.float32).cpu().numpy()
+            with trace.span("split"):
+                return self._per_input_row(g)
 
-    def _window_map_paths(self, pi, T, E, block=None):
-        """MAP paths through the window max-plus kernels (viterbi_windows);
-        ``block`` streams the phase-C backpointers per block."""
-        states = wk.viterbi_windows(
-            pi, T, E, self._wkeys, self._wvalid, self._soc, self._row_ends(),
-            block=block, mesh=self._mesh,
-        )
-        return [p.astype(np.int32) for p in self._split_rows(states.cpu().numpy())]
+    def _viterbi_route(self):
+        """The MAP decode's route and block: ('windows', None) when the
+        window backpointer stream fits the budget, ('blocked', B) when the
+        backpointers recomputed per block of B windows do, else ('rows',
+        None), the row-level Viterbi."""
+        if self._use_windows:
+            if self._window_viterbi_fits():
+                return "windows", None
+            L = self._wkeys.shape[1]
+            block = wk.remat_block_size(L)
+            eff = (block * 1.0 + 4.0 * (L // block)) / L  # int8 blk + f32 snaps
+            if self._window_stream_bytes(eff) <= self._hbm_budget():
+                return "blocked", block
+        return "rows", None
 
     def map_paths(self):
         """Row-resolution MAP (Viterbi) hidden-state paths, one (L_i,) int32
         array per contig (manager.py:698-771): when the E-step runs on
         windows, the state at each row's last window through the window
-        max-plus kernels, or, over the backpointer budget, with the
-        backpointers recomputed per block (K5 blocked on the card).  Otherwise (the span kernel, past both window
-        gates, M = 1) the row-level Viterbi (hmm.viterbi_paths) in f64 over
-        the packed rows; a split row reports the state at its last
-        sub-row's end."""
-        pi, T, E = self.tensors()
-        if self._use_windows:
-            pi32, T32, E32 = (x.float().contiguous() for x in (pi, T, E))
-            if self._window_viterbi_fits():
-                return self._window_map_paths(pi32, T32, E32)
-            L = self._wkeys.shape[1]
-            block = wk.remat_block_size(L)
-            eff = (block * 1.0 + 4.0 * (L // block)) / L  # int8 blk + f32 snaps
-            if self._window_stream_bytes(eff) <= self._hbm_budget():
-                logger.info(
-                    "window Viterbi backpointer stream over budget; "
-                    "streaming per block (%d)", block,
+        max-plus kernels (viterbi_windows), or, over the backpointer budget,
+        with the backpointers recomputed per block (K5 blocked on the card).
+        Otherwise (the span kernel, past both window gates, M = 1) the
+        row-level Viterbi (hmm.viterbi_paths) in f64 over the packed rows; a
+        split row reports the state at its last sub-row's end."""
+        with trace.span("viterbi") as span:  # named once chosen, as the decode
+            route, block = self._viterbi_route()
+            span.rename("viterbi." + route)
+            with trace.span("tensors"):
+                pi, T, E = self.tensors()
+            if route != "rows":
+                if block is not None:
+                    logger.info(
+                        "window Viterbi backpointer stream over budget; "
+                        "streaming per block (%d)", block,
+                    )
+                pi32, T32, E32 = (x.float().contiguous() for x in (pi, T, E))
+                states = wk.viterbi_windows(
+                    pi32, T32, E32, self._wkeys, self._wvalid, self._soc,
+                    self._row_ends(), block=block, mesh=self._mesh,
                 )
-                return self._window_map_paths(pi32, T32, E32, block=block)
-        # replicated: this rank's contigs, every rank's paths gathered;
-        # host-local: every contig is this rank's, decoded on its own
-        paths = mesh_mod.gather_rows(
-            None if self._local_data else self._mesh,
-            hmm.viterbi_paths(pi, T, E, *self._rows(), self._nbits,
-                              self._row_budget()),
-        ).cpu().numpy()
-        return [paths[i, np.cumsum(reps) - 1] for i, reps in enumerate(self._row_reps)]
+                with trace.span("pull"):
+                    states = states.cpu().numpy()
+                with trace.span("split"):
+                    return [p.astype(np.int32) for p in self._split_rows(states)]
+            # replicated: this rank's contigs, every rank's paths gathered;
+            # host-local: every contig is this rank's, decoded on its own
+            paths = mesh_mod.gather_rows(
+                None if self._local_data else self._mesh,
+                hmm.viterbi_paths(pi, T, E, *self._rows(), self._nbits,
+                                  self._row_budget()),
+            )
+            with trace.span("pull"):
+                paths = paths.cpu().numpy()
+            with trace.span("split"):
+                return [paths[i, np.cumsum(reps) - 1]
+                        for i, reps in enumerate(self._row_reps)]
 
     def _check_finite(self, ll, stats, pi, T, E):
         """Detect NaN/Inf in the E-step outputs and dump diagnostics: the
@@ -740,21 +775,23 @@ class OnePopInferenceManager(_InferenceManager):
         """Q at (possibly overridden) parameters, float: gamma0 . log pi +
         sum gs * log E + sum xisum * log T (reference HMM::Q,
         hmm.cpp:155-193).  Under a joint model, at the current parameters."""
-        if self._joint:
-            return float(self._q_of(*self.tensors(), self._stats_t()))
-        y, theta, rho, alpha = self._params(y, theta, rho, alpha)
-        with torch.no_grad():
-            pi, T, E = self._tensors_fn(self._f64(y), theta, self._f64(rho), alpha)
-            return float(self._q_of(pi, T, E, self._stats_t()))
+        with trace.span("q.one"):
+            if self._joint:
+                return float(self._q_of(*self.tensors(), self._stats_t()))
+            y, theta, rho, alpha = self._params(y, theta, rho, alpha)
+            with torch.no_grad():
+                pi, T, E = self._tensors_fn(self._f64(y), theta, self._f64(rho), alpha)
+                return float(self._q_of(pi, T, E, self._stats_t()))
 
     def Q_and_grad(self, y=None, theta=None, rho=None, alpha=None):
         "(Q, dQ/dy) at (possibly overridden) parameters, by autograd."
-        y, theta, rho, alpha = self._params(y, theta, rho, alpha)
-        yt = self._f64(y).requires_grad_(True)
-        pi, T, E = self._tensors_fn(yt, theta, self._f64(rho), alpha)
-        q = self._q_of(pi, T, E, self._stats_t())
-        (g,) = torch.autograd.grad(q, yt)
-        return float(q.detach()), g.cpu().numpy()
+        with trace.span("q.grad"):
+            y, theta, rho, alpha = self._params(y, theta, rho, alpha)
+            yt = self._f64(y).requires_grad_(True)
+            pi, T, E = self._tensors_fn(yt, theta, self._f64(rho), alpha)
+            q = self._q_of(pi, T, E, self._stats_t())
+            (g,) = torch.autograd.grad(q, yt)
+            return float(q.detach()), g.cpu().numpy()
 
     @property
     def supports_qbatch(self):
@@ -835,26 +872,27 @@ class OnePopInferenceManager(_InferenceManager):
         if ys is None and rhos is None:
             raise ValueError("Q_batch needs ys and/or rhos")
         fast = fast_ok and self._use_fast_mstep()
-        y0, th, rho0, al = self._params(None, theta, None, alpha)
-        if ys is None:
-            return self.q_rho_batch(np.asarray(rhos, np.float64), th, al,
-                                    f32=fast)
-        ysb = np.asarray(ys, np.float64)
-        B = len(ysb)
-        rhob = np.full(B, rho0) if rhos is None else np.asarray(rhos, np.float64)
-        out = np.empty(B)
-        stats = self._stats_t()
-        step = self.q_chunk(fast)
-        with torch.no_grad():
-            for i in range(0, B, step):
-                j = min(B, i + step)
-                if fast:
-                    pi, T, E = self._tensors32(ysb[i:j], th, rhob[i:j], al)
-                else:
-                    pi, T, E = self._tensors_fn(
-                        self._f64(ysb[i:j]), th, self._f64(rhob[i:j]), al
-                    )
-                out[i:j] = self._q_of(pi, T, E, stats).cpu().numpy()
+        with trace.span("q.batch32" if fast else "q.batch64"):
+            y0, th, rho0, al = self._params(None, theta, None, alpha)
+            if ys is None:
+                return self.q_rho_batch(np.asarray(rhos, np.float64), th, al,
+                                        f32=fast)
+            ysb = np.asarray(ys, np.float64)
+            B = len(ysb)
+            rhob = np.full(B, rho0) if rhos is None else np.asarray(rhos, np.float64)
+            out = np.empty(B)
+            stats = self._stats_t()
+            step = self.q_chunk(fast)
+            with torch.no_grad():
+                for i in range(0, B, step):
+                    j = min(B, i + step)
+                    if fast:
+                        pi, T, E = self._tensors32(ysb[i:j], th, rhob[i:j], al)
+                    else:
+                        pi, T, E = self._tensors_fn(
+                            self._f64(ysb[i:j]), th, self._f64(rhob[i:j]), al
+                        )
+                    out[i:j] = self._q_of(pi, T, E, stats).cpu().numpy()
         if fast:
             Q_BATCH32.launches += 1
         return out
@@ -865,22 +903,23 @@ class OnePopInferenceManager(_InferenceManager):
         transition build (reference: the dirty-flag graph recomputes only
         the transition on setRho, inference_manager.cpp:213-229); with
         ``f32``, the f32 program."""
-        y0, th, _, al = self._params(None, theta, None, alpha)
-        gamma0, xisum, gamma_sums = self._stats_t()
-        if f32:
-            pi, T, E = self._tensors32(y0, th, rhos, al)
-        else:
-            with torch.no_grad():
-                a = self.model.stepwise_values_fn(self._f64(y0))
-                bl = csfs_mod.conditioned_sfs(a, self._grid, self.n)
-                pi, E = _pi_and_e(self.em_idx, a, self._grid, bl, th, al)
-                rhos_t = self._f64(rhos)
-                T = transition.transition_matrix(
-                    a.expand(len(rhos_t), -1), rhos_t, self._grid)
-        base = torch.sum(gamma0 * torch.log(pi)) + torch.sum(
-            gamma_sums * torch.log(E)
-        )
-        out = (base + torch.sum(xisum * torch.log(T), (-2, -1))).cpu().numpy()
+        with trace.span("q.rho32" if f32 else "q.rho64"):
+            y0, th, _, al = self._params(None, theta, None, alpha)
+            gamma0, xisum, gamma_sums = self._stats_t()
+            if f32:
+                pi, T, E = self._tensors32(y0, th, rhos, al)
+            else:
+                with torch.no_grad():
+                    a = self.model.stepwise_values_fn(self._f64(y0))
+                    bl = csfs_mod.conditioned_sfs(a, self._grid, self.n)
+                    pi, E = _pi_and_e(self.em_idx, a, self._grid, bl, th, al)
+                    rhos_t = self._f64(rhos)
+                    T = transition.transition_matrix(
+                        a.expand(len(rhos_t), -1), rhos_t, self._grid)
+            base = torch.sum(gamma0 * torch.log(pi)) + torch.sum(
+                gamma_sums * torch.log(E)
+            )
+            out = (base + torch.sum(xisum * torch.log(T), (-2, -1))).cpu().numpy()
         if f32:
             Q_RHO32.launches += 1
         return out
@@ -970,7 +1009,7 @@ class TwoPopInferenceManager(_InferenceManager):
                self.rho, self.alpha)
         if self._tensors_cache[0] == key:
             return self._tensors_cache[1]
-        with torch.no_grad():
+        with trace.span("tensors2"), torch.no_grad():
             out = (self._tensors_traced() if self._traced_tensors_ok()
                    else self._tensors_eager())
         TENSORS.launches += 1

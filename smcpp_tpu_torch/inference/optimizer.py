@@ -19,7 +19,7 @@ import os
 import numpy as np
 import scipy.optimize
 
-from .. import defaults
+from .. import defaults, trace
 
 logger = logging.getLogger(__name__)
 
@@ -327,7 +327,8 @@ class SMCPPOptimizer:
             return False
         self._unified_used = True
         for _ in range(self._UNIFIED_MAX_ROUNDS):
-            moved, v_new, gain = self._unified_round()
+            with trace.span("mstep.round"):
+                moved, v_new, gain = self._unified_round()
             # a round whose own exact-f64 gain (accepted Q minus the
             # same-batch base row) is already below ~ftol|Q|/10 will not
             # seed a productive next round: stop here (the steady state
@@ -815,24 +816,16 @@ class SMCPPOptimizer:
                 self._occupancy_diagnostics()
                 ll = self._maybe_raise_precision(self._analysis.loglik())
                 self._check_termination(ll)
-                if self._outdir:
-                    self._analysis.dump(
-                        os.path.join(self._outdir, f".{self._base}.iter{i}")
-                    )
-                if not self._unified_mstep():
-                    if self._learn_rho:
-                        th = self._analysis._theta
-                        self._optimize_param("rho", (th / 100, th * 100))
-                    self._optimize_scale()
-                    prefetch = self._prefetch_coarse()
-                    if not self._fast_coordinate_pass(prefetch):
-                        for coords in self._coordinates():
-                            x0 = self._analysis.model.y[coords]
-                            res = self._minimize(
-                                x0, coords, coarse0=prefetch.get(coords[0])
-                            )
-                            self._analysis.model.y[coords] = res.x
-                self._broadcast_parameters()
+                with trace.span("mstep.sequential") as span:
+                    if self._outdir:
+                        self._analysis.dump(
+                            os.path.join(self._outdir, f".{self._base}.iter{i}")
+                        )
+                    if self._unified_mstep():
+                        span.rename("mstep.unified")
+                    else:
+                        self._sequential_mstep()
+                    self._broadcast_parameters()
                 if logger.isEnabledFor(logging.DEBUG):
                     logger.debug(
                         "size history after iteration %d:\n%s",
@@ -842,6 +835,26 @@ class SMCPPOptimizer:
             pass
         if self._outdir:
             self._analysis.dump(os.path.join(self._outdir, f"{self._base}.final"))
+
+    def _sequential_mstep(self):
+        """The sequential M-step: rho, the global scale, then each knot's
+        search (or the one-batch fast pass over every knot)."""
+        if self._learn_rho:
+            th = self._analysis._theta
+            with trace.span("mstep.rho"):
+                self._optimize_param("rho", (th / 100, th * 100))
+        with trace.span("mstep.scale"):
+            self._optimize_scale()
+        with trace.span("mstep.prefetch"):
+            prefetch = self._prefetch_coarse()
+        with trace.span("mstep.fast"):
+            done = self._fast_coordinate_pass(prefetch)
+        if not done:
+            for coords in self._coordinates():
+                x0 = self._analysis.model.y[coords]
+                with trace.span("mstep.coord"):
+                    res = self._minimize(x0, coords, coarse0=prefetch.get(coords[0]))
+                self._analysis.model.y[coords] = res.x
 
     def _check_termination(self, ll):
         "plugins/loglikelihood_monitor.py"
@@ -899,8 +912,9 @@ class TwoPopulationOptimizer(SMCPPOptimizer):
                 self._analysis.E_step()
                 ll = self._maybe_raise_precision(self._analysis.loglik())
                 self._check_termination(ll)
-                self._optimize_param("split", (0.0, self._max_split))
-                self._broadcast_parameters()
+                with trace.span("mstep.split"):
+                    self._optimize_param("split", (0.0, self._max_split))
+                    self._broadcast_parameters()
         except EMTerminationException:
             pass
         if self._outdir:

@@ -38,6 +38,7 @@ oracles.
 import numpy as np
 import torch
 
+from .. import trace
 from . import window_kernel as wk
 
 # The reference's batch budget (256 MB), the default on every device; the
@@ -171,11 +172,12 @@ def _boundaries(pi, T, E, spans, keys, nbits, chunk, budget_bytes):
     """The chunk products and K6 over them: (Ms (R, M, M), ll, A_in (R, M),
     Q_end (R, M), cvalid (C,)), R = C n_chunks."""
     M = T.shape[0]
-    with torch.no_grad():
+    with trace.span("products"), torch.no_grad():
         Ms, logs = _all_chunk_products(T, E, spans, keys, nbits, chunk, budget_bytes)
-    table, seg_has = _chunk_layout(spans, chunk)
-    Ms, logs = Ms.view(-1, M, M), logs.view(-1)
-    return (Ms, *wk.contig_boundaries(pi, Ms, logs, table, seg_has))
+    with trace.span("scan"):
+        table, seg_has = _chunk_layout(spans, chunk)
+        Ms, logs = Ms.view(-1, M, M), logs.view(-1)
+        return (Ms, *wk.contig_boundaries(pi, Ms, logs, table, seg_has))
 
 
 class SpanLoglik(torch.autograd.Function):
@@ -305,10 +307,11 @@ def rows_gammas(T, E, spans, keys, A_in, Q_end, nbits, chunk, budget_bytes=None)
     ky = keys.reshape(-1, chunk)
     bs = _tape_batch_size(chunk, M, nbits, budget_bytes or BATCH_BYTES,
                           T.element_size())
-    g = torch.cat([
-        _chunk_gammas(T, E, sp[i:i + bs], ky[i:i + bs], A_in[i:i + bs],
-                      Q_end[i:i + bs], nbits)
-        for i in range(0, sp.shape[0], bs)])
+    with trace.span("gammas"):
+        g = torch.cat([
+            _chunk_gammas(T, E, sp[i:i + bs], ky[i:i + bs], A_in[i:i + bs],
+                          Q_end[i:i + bs], nbits)
+            for i in range(0, sp.shape[0], bs)])
     # posterior masses are nonnegative; f32 rounding can land ~-1e-8
     return torch.clamp(g.view(C, L, M), min=0.0)
 
@@ -371,9 +374,10 @@ def row_powers(T, E, spans, keys, nbits, budget_bytes=None):
     sp, ky = spans.reshape(-1), keys.reshape(-1).long()
     W = torch.empty((sp.shape[0], M, M), dtype=T.dtype, device=T.device)
     bs = _mp_batch_size(M, budget_bytes or BATCH_BYTES, T.element_size())
-    for i in range(0, sp.shape[0], bs):
-        j = min(i + bs, sp.shape[0])
-        W[i:j] = _mp_power(logT + logE[ky[i:j]][:, None, :], sp[i:j], nbits)
+    with trace.span("powers"):
+        for i in range(0, sp.shape[0], bs):
+            j = min(i + bs, sp.shape[0])
+            W[i:j] = _mp_power(logT + logE[ky[i:j]][:, None, :], sp[i:j], nbits)
     return W
 
 
@@ -437,12 +441,13 @@ def viterbi_paths(pi, T, E, spans, keys, nbits, budget_bytes=None):
     W = row_powers(T, E, spans, keys, nbits, budget_bytes)
     Wops = W.transpose(1, 2).to(torch.float32).contiguous()
     del W
-    real = spans > 0
-    sp = spans.cpu().numpy()
-    table = np.where(sp > 0, np.arange(C * L).reshape(C, L), -1)
-    entry, exit_ = wk.viterbi_boundary_states(pi, Wops, table)
-    path = _fill_padding(exit_.view(C, L).long(), entry.view(C, L).long(), real, pi)
-    return path.to(torch.int32)
+    with trace.span("scan"):
+        real = spans > 0
+        sp = spans.cpu().numpy()
+        table = np.where(sp > 0, np.arange(C * L).reshape(C, L), -1)
+        entry, exit_ = wk.viterbi_boundary_states(pi, Wops, table)
+        path = _fill_padding(exit_.view(C, L).long(), entry.view(C, L).long(), real, pi)
+        return path.to(torch.int32)
 
 
 def viterbi_path(pi, T, E, spans, keys, nbits):

@@ -367,6 +367,23 @@ def test_cv_single_fold(cv_files, tmp_path):
     assert not os.path.exists(os.path.join(out, "model.final.json"))
 
 
+def test_cv_profile_dir(cv_files, tmp_path):
+    """cv --profile-dir writes a Chrome trace of the fold loop, as
+    estimate's, with the program's spans."""
+    prof = tmp_path / "prof"
+    with pytest.raises(SystemExit) as e:
+        torch_main.main(["cv", *CV_ARGS, "--fold", "0", "--profile-dir",
+                         str(prof), "-o", str(tmp_path / "cv"), "1.25e-8",
+                         *cv_files])
+    assert e.value.code == 0
+    with open(prof / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e["name"] for e in events
+             if e.get("ph") == "X" and e.get("cat") == "smcpp"]
+    for prefix in ("estep.", "mstep.", "q."):
+        assert any(n.startswith(prefix) for n in spans), prefix
+
+
 @pytest.mark.parametrize("bad", [["--folds", "3"], ["--folds", "1"],
                                  ["--fold", "2"], ["--fold", "-1"]])
 def test_cv_exits_match_jax(cv_files, tmp_path, bad):
@@ -388,6 +405,8 @@ def test_cv_exits_match_jax(cv_files, tmp_path, bad):
 # so the port has no cap on a mesh's devices)
 JAX_ONLY = {"--devices"}
 TORCH_ONLY = {"--device"}
+# the port's posterior writes a profiler trace of its decode, as estimate does
+TORCH_ONLY_IN = {"posterior": {"--profile-dir"}}
 
 
 def _surface(pkg):
@@ -414,7 +433,7 @@ def test_cli_surface_matches_jax():
         jopts, jpos = jax[name]
         topts, tpos = port[name]
         assert tpos == jpos, name
-        assert topts - TORCH_ONLY == jopts - JAX_ONLY, name
+        assert topts - TORCH_ONLY - TORCH_ONLY_IN.get(name, set()) == jopts - JAX_ONLY, name
         assert ("--device" in topts) == ("--devices" in jopts), name
 
 

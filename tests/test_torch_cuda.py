@@ -65,6 +65,8 @@ stored-stream pass at the same tolerances; K5 blocked must equal K5 and the
 plain blocked walk bit for bit.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1607,3 +1609,43 @@ def test_two_ranks_sharing_the_card(dev, tmp_path):
     g1 = g1.cpu().numpy()
     np.testing.assert_allclose(z["decode"], g1, rtol=1e-4,
                                atol=1e-3 * float(g1.sum(1).max()))
+
+
+def test_estep_span_holds_its_launches_on_the_profilers_clock(dev):
+    """A program span (smcpp_tpu_torch/trace.py) and torch.profiler share a
+    clock on the device path: the ``estep.windows`` span of a window
+    manager's E-step under the profiler holds, on its own thread, the CUDA
+    runtime's launch events of the K3 and K1 kernels it ran (found through
+    the kernels' correlation ids)."""
+    from smcpp_tpu_torch import trace
+
+    rng = np.random.RandomState(50)
+    data = np.zeros((300, 4), dtype=np.int32)
+    data[:, 0] = rng.randint(1, 40, 300)
+    data[:, 1] = rng.randint(0, 3, 300)
+    data[:, 3] = 2
+    data[:, 2] = rng.randint(0, 3, 300)
+    im = _row_manager(data, dev)
+    assert im._use_windows
+    im.E_step()  # builds and warms the kernels
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time_ns()
+        im.E_step()
+        t1 = time.time_ns()
+    (span,) = [r for r in trace.records(t0, t1) if r.name == "estep.windows"]
+    events = prof.profiler.kineto_results.events()
+    corr = {}
+    for e in events:
+        if str(e.device_type()).endswith("CUDA"):
+            for k in ("segment_ops", "asc_sweep"):
+                if k in e.name():
+                    corr.setdefault(k, set()).add(e.correlation_id())
+    assert set(corr) == {"segment_ops", "asc_sweep"}
+    for k, ids in corr.items():
+        launch = [e for e in events if e.correlation_id() in ids
+                  and "LaunchKernel" in e.name()]
+        assert launch, k
+        for e in launch:
+            assert span.start <= e.start_ns() <= span.end, k
+            assert e.device_resource_id() == span.tid, k

@@ -183,7 +183,8 @@ def test_cuda_requested_without_a_card_raises(smc_files, monkeypatch):
 
 def test_cli_estimate_profile_dir(smc_files, tmp_path):
     """--profile-dir (the JAX CLI's flag) is accepted and writes a Chrome
-    trace of the run: torch.profiler's, not jax.profiler's."""
+    trace of the run: torch.profiler's, not jax.profiler's, with the
+    program's M-step and Q spans in it."""
     out, prof = tmp_path / "out", tmp_path / "prof"
     torch_main.main([
         "estimate", "--device", "cpu", "--em-iterations", "1",
@@ -197,3 +198,8 @@ def test_cli_estimate_profile_dir(smc_files, tmp_path):
     events = trace["traceEvents"]
     assert any(e.get("ph") == "X" and e.get("name", "").startswith("aten::")
                for e in events)
+    # the program's spans (smcpp_tpu_torch/trace.py) beside the profiler's
+    spans = [e["name"] for e in events
+             if e.get("ph") == "X" and e.get("cat") == "smcpp"]
+    assert any(n.startswith("mstep.") for n in spans)
+    assert any(n.startswith("q.") for n in spans)

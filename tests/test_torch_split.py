@@ -135,6 +135,25 @@ def test_split_cli_writes_joint_model(joint_data, tmp_path):
 
 
 
+def test_split_cli_profile_dir(joint_data, tmp_path):
+    """split --profile-dir writes a Chrome trace of the run, as estimate's,
+    with the program's spans: the split search's M-step and the joint
+    tensors()."""
+    d, files, (p1, p2), _ = joint_data
+    prof = tmp_path / "prof"
+    torch_main.main(["split", "--device", "cpu", "--profile-dir", str(prof),
+                     "-o", str(tmp_path / "cli"), p1, p2, *files])
+    with open(prof / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("ph") == "X" and e.get("name", "").startswith("aten::")
+               for e in events)
+    spans = [e["name"] for e in events
+             if e.get("ph") == "X" and e.get("cat") == "smcpp"]
+    assert any(n.startswith("mstep.") for n in spans)
+    assert "tensors2" in spans
+    assert any(n.startswith("estep.") for n in spans)
+
+
 @pytest.mark.parametrize("command", ["split", "posterior"])
 def test_cuda_requested_without_a_card_raises(command, joint_data, tmp_path,
                                                monkeypatch):
