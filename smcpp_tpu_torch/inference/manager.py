@@ -49,11 +49,12 @@ from ..models import SMCTwoPopulationModel
 from ..ops import csfs as csfs_mod
 from ..ops import emission as em_mod
 from ..ops import grid as grid_mod
-from ..ops import hmm
+from ..ops import hmm, qconst
 from ..ops import ratefunc, transition
 from ..ops import window_kernel as wk
 from ..parallel import distributed, hostlocal
 from ..parallel import mesh as mesh_mod
+from . import qgraph
 
 logger = logging.getLogger(__name__)
 
@@ -213,19 +214,22 @@ def _job_mesh(mesh):
     return mesh if mesh is not None else distributed.current()
 
 
-def _pi_and_e(em_idx, a, grid, branch_lengths, theta, alpha):
+def _pi_and_e(em_idx, a, grid, branch_lengths, theta, alpha, c=None):
     """pi and E from the per-piece sizes ``a`` on ``grid`` and the CSFS (or
-    joint CSFS) branch lengths of each hidden interval, in ``a``'s dtype."""
-    pi = ratefunc.initial_distribution(a, grid)
-    em = csfs_mod.incorporate_theta(branch_lengths, theta)
-    e2 = em_mod.e2_matrix(ratefunc.average_coal_times(a, grid), theta, alpha)
-    return pi, em_mod.emission_matrix(em_idx, em, e2)
+    joint CSFS) branch lengths of each hidden interval, in ``a``'s dtype;
+    ``c``: the grid's constants (ops/qconst.py), made here when None."""
+    c = ratefunc.consts(grid, a, c)
+    pi = ratefunc.initial_distribution(a, grid, c)
+    em = csfs_mod.incorporate_theta(branch_lengths, theta, c)
+    e2 = em_mod.e2_matrix(ratefunc.average_coal_times(a, grid, c), theta, alpha)
+    return pi, em_mod.emission_matrix(em_idx, em, e2, c)
 
 
-def _hmm_tensors(em_idx, a, grid, rho, branch_lengths, theta, alpha):
+def _hmm_tensors(em_idx, a, grid, rho, branch_lengths, theta, alpha, c=None):
     "(pi, T, E): ``_pi_and_e`` and the transition matrix."
-    pi, E = _pi_and_e(em_idx, a, grid, branch_lengths, theta, alpha)
-    return pi, transition.transition_matrix(a, rho, grid), E
+    c = ratefunc.consts(grid, a, c)
+    pi, E = _pi_and_e(em_idx, a, grid, branch_lengths, theta, alpha, c)
+    return pi, transition.transition_matrix(a, rho, grid, c), E
 
 
 def _marginal_model(model, pid):
@@ -731,12 +735,20 @@ class OnePopInferenceManager(_InferenceManager):
         )
         super().__init__(em_idx, data_list, hidden_states, pid, chunk, device,
                          precision, mesh, local_data)
+        # the Q programs: their constants a grid and dtype, their graphs
+        self._bundles = {}
+        self._qg = qgraph.QGraphs(self._device)
+        self._qstats = self._qstats_of = None
 
     # -- model and the Q family --------------------------------------------
     def set_model(self, model):
         """A one-population model, or a joint model whose marginal for this
         manager's population (``pid[0]``) it fits: that marginal and its
-        grid change with the split time, so they are rebuilt per call."""
+        grid change with the split time, so they are rebuilt per call.
+        Another model object or another grid drops the Q programs'
+        constants and graphs."""
+        if model is not self.model:
+            self._drop_programs()
         self.model = model
         self._joint = isinstance(model, SMCTwoPopulationModel)
         if self._joint:
@@ -745,19 +757,40 @@ class OnePopInferenceManager(_InferenceManager):
         g = grid_mod.make_time_grid(model.s, self.hidden_states)
         if self._grid is None or not np.array_equal(g.ts, self._grid.ts):
             self._grid = g
+            self._drop_programs()
+
+    def _drop_programs(self):
+        self._bundles = {}
+        self._qg.clear()
+
+    def _bundle(self, grid, dtype):
+        """The Q family's constants on ``grid`` in ``dtype`` (ops/qconst.py),
+        made whole once a grid: no Q evaluation copies them again.  One
+        that replaces another drops the graphs, which read the old arrays."""
+        b = self._bundles.get(dtype)
+        if b is None or b.grid is not grid:
+            if b is not None:
+                self._qg.clear()
+            b = qconst.QConsts(grid, dtype, self._device).prime(
+                self.n, self.em_idx, self.model if dtype == torch.float64 else None)
+            self._bundles[dtype] = b
+        return b
 
     def _tensors_fn(self, y, theta, rho, alpha):
         """(pi, T, E) in f64 from knot values ``y`` (..., K) and ``rho``
         (...,): the differentiable setup pipeline."""
-        a = self.model.stepwise_values_fn(y)
-        return self._tensors_of(a, self._grid, rho, theta, alpha)
+        c = self._bundle(self._grid, torch.float64)
+        a = self.model.stepwise_values_fn(y, c)
+        return self._tensors_of(a, self._grid, rho, theta, alpha, c)
 
-    def _tensors_of(self, a, grid, rho, theta, alpha):
-        bl = csfs_mod.conditioned_sfs(a, grid, self.n)
-        return _hmm_tensors(self.em_idx, a, grid, rho, bl, theta, alpha)
+    def _tensors_of(self, a, grid, rho, theta, alpha, c=None):
+        c = ratefunc.consts(grid, a, c)
+        bl = csfs_mod.conditioned_sfs(a, grid, self.n, c)
+        return _hmm_tensors(self.em_idx, a, grid, rho, bl, theta, alpha, c)
 
     def tensors(self):
-        "(pi, T, E) at the current parameters, f64 on the manager's device."
+        """(pi, T, E) at the current parameters, f64 on the manager's device
+        (a graph's replay on a GPU, copied out; eager under a joint model)."""
         with torch.no_grad():
             if self._joint:
                 marg = _marginal_model(self.model, self.pid[0])
@@ -766,10 +799,13 @@ class OnePopInferenceManager(_InferenceManager):
                     self._f64(marg.stepwise_values()), grid,
                     self._f64(self.rho), self.theta, self.alpha,
                 )
-            return self._tensors_fn(
-                self._f64(self.model.y), self.theta, self._f64(self.rho),
-                self.alpha,
-            )
+            th, al = self.theta, self.alpha
+
+            def prog(y, rho):
+                return self._tensors_fn(y, th, rho, al)
+
+            return self._qg.run(("tensors", float(th), float(al)), prog,
+                                (self.model.y, self.rho), copy=True)
 
     def Q(self, y=None, theta=None, rho=None, alpha=None):
         """Q at (possibly overridden) parameters, float: gamma0 . log pi +
@@ -828,23 +864,27 @@ class OnePopInferenceManager(_InferenceManager):
 
     def _tensors32(self, ys, theta, rhos, alpha):
         """The f32 program: (pi, T, E) in f32 at knot values ``ys`` (..., K)
-        and ``rhos`` (B,) on the manager's device; pi and E follow ``ys``'s
-        batch shape, T has ``rhos``'s.  The spline in f64, cast to f32, then
-        pi and E on the f32 grid with every product at full f32.  T is the
-        f64 transition rounded to f32: its diagonal, 1 - O(1e-3), carries
-        nearly all of xisum's mass, and built in f32 (as the reference does)
-        it came out about 13 ulp off, which on fitted statistics took a
-        coarse batch to 0.93 of the f32 bar with another argmax; rounded it
-        is 1 ulp off.  T's work does not grow with n."""
-        rhos_t = self._f64(rhos)
+        and ``rhos`` (B,) (f64 tensors on the manager's device, or host
+        arrays); pi and E follow ``ys``'s batch shape, T has ``rhos``'s.
+        The spline in f64, cast to f32, then pi and E on the f32 grid with
+        every product at full f32.  T is the f64 transition rounded to f32:
+        its diagonal, 1 - O(1e-3), carries nearly all of xisum's mass, and
+        built in f32 (as the reference does) it came out about 13 ulp off,
+        which on fitted statistics took a coarse batch to 0.93 of the f32
+        bar with another argmax; rounded it is 1 ulp off.  T's work does
+        not grow with n."""
+        ys, rhos_t = (x if torch.is_tensor(x) else self._f64(x) for x in (ys, rhos))
+        grid32 = self._grid32()
+        c64 = self._bundle(self._grid, torch.float64)
+        c32 = self._bundle(grid32, torch.float32)
         with torch.no_grad(), exact_f32():
-            a = self.model.stepwise_values_fn(self._f64(ys))
+            a = self.model.stepwise_values_fn(ys, c64)
             T = transition.transition_matrix(
-                a.expand(*rhos_t.shape, a.shape[-1]), rhos_t, self._grid)
-            a32, grid32 = a.float(), self._grid32()
-            bl = csfs_mod.conditioned_sfs(a32, grid32, self.n)
+                a.expand(*rhos_t.shape, a.shape[-1]), rhos_t, self._grid, c64)
+            a32 = a.float()
+            bl = csfs_mod.conditioned_sfs(a32, grid32, self.n, c32)
             pi, E = _pi_and_e(self.em_idx, a32, grid32, bl, float(theta),
-                              float(alpha))
+                              float(alpha), c32)
         return pi, T.float(), E
 
     def _q_budget(self):
@@ -881,18 +921,21 @@ class OnePopInferenceManager(_InferenceManager):
             B = len(ysb)
             rhob = np.full(B, rho0) if rhos is None else np.asarray(rhos, np.float64)
             out = np.empty(B)
-            stats = self._stats_t()
+            stats = self._q_stats()
             step = self.q_chunk(fast)
-            with torch.no_grad():
-                for i in range(0, B, step):
-                    j = min(B, i + step)
+
+            def prog(ys, rhos):
+                with torch.no_grad():
                     if fast:
-                        pi, T, E = self._tensors32(ysb[i:j], th, rhob[i:j], al)
+                        pi, T, E = self._tensors32(ys, th, rhos, al)
                     else:
-                        pi, T, E = self._tensors_fn(
-                            self._f64(ysb[i:j]), th, self._f64(rhob[i:j]), al
-                        )
-                    out[i:j] = self._q_of(pi, T, E, stats).cpu().numpy()
+                        pi, T, E = self._tensors_fn(ys, th, rhos, al)
+                    return self._q_of(pi, T, E, stats)
+
+            for i in range(0, B, step):
+                j = min(B, i + step)
+                key = ("batch32" if fast else "batch64", j - i, float(th), float(al))
+                out[i:j] = self._qg.run(key, prog, (ysb[i:j], rhob[i:j])).cpu().numpy()
         if fast:
             Q_BATCH32.launches += 1
         return out
@@ -905,24 +948,43 @@ class OnePopInferenceManager(_InferenceManager):
         ``f32``, the f32 program."""
         with trace.span("q.rho32" if f32 else "q.rho64"):
             y0, th, _, al = self._params(None, theta, None, alpha)
-            gamma0, xisum, gamma_sums = self._stats_t()
-            if f32:
-                pi, T, E = self._tensors32(y0, th, rhos, al)
-            else:
+            gamma0, xisum, gamma_sums = self._q_stats()
+
+            def prog(y, rhos_t):
                 with torch.no_grad():
-                    a = self.model.stepwise_values_fn(self._f64(y0))
-                    bl = csfs_mod.conditioned_sfs(a, self._grid, self.n)
-                    pi, E = _pi_and_e(self.em_idx, a, self._grid, bl, th, al)
-                    rhos_t = self._f64(rhos)
-                    T = transition.transition_matrix(
-                        a.expand(len(rhos_t), -1), rhos_t, self._grid)
-            base = torch.sum(gamma0 * torch.log(pi)) + torch.sum(
-                gamma_sums * torch.log(E)
-            )
-            out = (base + torch.sum(xisum * torch.log(T), (-2, -1))).cpu().numpy()
+                    if f32:
+                        pi, T, E = self._tensors32(y, th, rhos_t, al)
+                    else:
+                        g, c = self._grid, self._bundle(self._grid, torch.float64)
+                        a = self.model.stepwise_values_fn(y, c)
+                        bl = csfs_mod.conditioned_sfs(a, g, self.n, c)
+                        pi, E = _pi_and_e(self.em_idx, a, g, bl, th, al, c)
+                        T = transition.transition_matrix(
+                            a.expand(len(rhos_t), -1), rhos_t, g, c)
+                    base = torch.sum(gamma0 * torch.log(pi)) + torch.sum(
+                        gamma_sums * torch.log(E)
+                    )
+                    return base + torch.sum(xisum * torch.log(T), (-2, -1))
+
+            key = ("rho32" if f32 else "rho64", len(rhos), float(th), float(al))
+            out = self._qg.run(key, prog, (y0, np.asarray(rhos, np.float64))).cpu().numpy()
         if f32:
             Q_RHO32.launches += 1
         return out
+
+    def _q_stats(self):
+        """The E-statistics as f64 tensors in the manager's own buffers,
+        refreshed when an E-step replaced them: what the Q programs read,
+        so a captured program reads the newest (``_stats_t`` makes new
+        tensors each E-step)."""
+        if self._qstats_of is not self._stats:
+            src = self._stats_t()
+            if self._qstats is None:
+                self._qstats = tuple(torch.empty_like(s) for s in src)
+            for d, s in zip(self._qstats, src):
+                d.copy_(s)
+            self._qstats_of = self._stats
+        return self._qstats
 
     def _params(self, y, theta, rho, alpha):
         return (

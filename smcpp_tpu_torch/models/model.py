@@ -134,13 +134,19 @@ class SMCModel:
             self.y = logv.copy()
 
     # ---- differentiable pipeline (y: tensor with leading batch dims) ----
-    def eval_at(self, y, points):
-        "exp(spline(log points))."
-        return torch.exp(self._spline(y, np.log(np.asarray(points))))
+    def eval_at(self, y, points, k=None):
+        "exp(spline(log points)); ``k``: the spline's arrays at them."
+        return torch.exp(self._spline(y, np.log(np.asarray(points)), k))
 
-    def stepwise_values_fn(self, y):
-        "Stepwise values on the s-grid, clipped (model.py:203-209)."
-        vals = self.eval_at(y, np.cumsum(self.s))
+    def spline_constants(self):
+        "The spline's static arrays at the piece ends (``stepwise_values_fn``)."
+        return self._spline.constants(np.log(np.asarray(np.cumsum(self.s))))
+
+    def stepwise_values_fn(self, y, c=None):
+        """Stepwise values on the s-grid, clipped (model.py:203-209); the
+        spline's arrays from ``c`` (ops/qconst.py) where given."""
+        k = None if c is None else c.spline(self)
+        vals = self.eval_at(y, np.cumsum(self.s), k)
         return torch.clamp(
             vals,
             defaults.minimum_population_size,

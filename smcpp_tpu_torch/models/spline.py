@@ -6,10 +6,16 @@ knot locations and query points are static NumPy, so evaluation is fixed
 linear algebra plus elementwise selects and autograd supplies the gradient
 (the reference uses object-dtype NumPy over its vendored ``ad`` scalars,
 SMC++ smcpp/spline/).
+
+The static arrays of an evaluation (``constants(points)``: the knot
+spacings, the solve, the plan of the query points) are passed in as tensors
+``k`` (ops/qconst.py:device_arrays), or made from the host a call.
 """
 
 import numpy as np
 import torch
+
+from ..ops.qconst import device_arrays
 
 
 def _t(x, like):
@@ -31,15 +37,14 @@ class Spline:
     def __init__(self, x):
         self.x = np.asarray(x, dtype=np.float64)
 
-    def coefficients(self, y):
-        "Return (..., P+1, K) coefficient rows, highest order first."
-        raise NotImplementedError
+    def _static(self):
+        "The arrays of the coefficients, by name (none here)."
+        return {}
 
-    def __call__(self, y, points):
-        "Evaluate at static query points."
+    def _plan(self, points):
+        "The arrays of an evaluation at ``points``, by name."
         points = np.atleast_1d(np.asarray(points, dtype=np.float64))
         x = self.x
-        coef = self.coefficients(y)
         ip = np.searchsorted(x, points, side="right") - 1
         below = ip < 0
         above = ip >= len(x) - 1
@@ -47,9 +52,30 @@ class Spline:
         ipg = np.clip(ip, 0, len(x) - 2)
         powers = np.arange(self.P, -1, -1)[:, None]
         xi = np.where(good[None, :], (points - x[ipg]) ** powers, 0.0)
-        vals = torch.sum(coef[..., ipg] * _t(xi, coef), -2)
-        vals = torch.where(_t(below, coef).bool(), coef[..., -1, :1], vals)
-        vals = torch.where(_t(above, coef).bool(), coef[..., -1, -1:], vals)
+        return {"ipg": ipg, "xi": xi, "below": below, "above": above}
+
+    def constants(self, points):
+        "Every static array of an evaluation at ``points``, by name."
+        return {**self._static(), **self._plan(points)}
+
+    def _k(self, y, k, points=None):
+        "``k``, or the arrays made here in ``y``'s dtype and device."
+        if k is not None:
+            return k
+        arrays = self._static() if points is None else self.constants(points)
+        return device_arrays(arrays, y.dtype, y.device)
+
+    def coefficients(self, y, k=None):
+        "Return (..., P+1, K) coefficient rows, highest order first."
+        raise NotImplementedError
+
+    def __call__(self, y, points, k=None):
+        "Evaluate at static query points."
+        k = self._k(y, k, points)
+        coef = self.coefficients(y, k)
+        vals = torch.sum(coef[..., k["ipg"]] * k["xi"], -2)
+        vals = torch.where(k["below"], coef[..., -1, :1], vals)
+        vals = torch.where(k["above"], coef[..., -1, -1:], vals)
         return vals
 
     def roughness(self, y):
@@ -60,7 +86,7 @@ class Spline:
 class Piecewise(Spline):
     P = 0
 
-    def coefficients(self, y):
+    def coefficients(self, y, k=None):
         return y[..., None, :]
 
 
@@ -84,17 +110,21 @@ class CubicSpline(Spline):
         self._solve = np.linalg.inv(T)
         self._h = h
 
-    def _rhs(self, y):
-        jh = torch.diff(y, 1, -1) / _t(self._h, y)
+    def _static(self):
+        return {"h": self._h, "solve": self._solve}
+
+    def _rhs(self, y, h):
+        jh = torch.diff(y, 1, -1) / h
         return torch.cat(
             [3.0 * jh[..., :1], jh[..., 1:] - jh[..., :-1], -3.0 * jh[..., -1:]],
             -1,
         )
 
-    def coefficients(self, y):
-        h = _t(self._h, y)
+    def coefficients(self, y, k=None):
+        k = self._k(y, k)
+        h = k["h"]
         jh = torch.diff(y, 1, -1) / h
-        cb = self._rhs(y) @ _t(self._solve, y).T
+        cb = self._rhs(y, h) @ k["solve"].T
         ca = _append0((cb[..., 1:] - cb[..., :-1]) / h / 3.0)
         cc = jh - h * (2.0 * cb[..., :-1] + cb[..., 1:]) / 3.0
         last = (
@@ -122,14 +152,18 @@ def _smooth_abs(x):
 class PChipSpline(CubicSpline):
     "C1 monotone cubic (spline/pchip.py), elementwise-select formulation."
 
-    def coefficients(self, y):
+    def _static(self):
+        hn = np.diff(self.x)
+        return {"h": hn, "w1": 2 * hn[1:] + hn[:-1], "w2": hn[1:] + 2 * hn[:-1]}
+
+    def coefficients(self, y, k=None):
+        k = self._k(y, k)
         x = self.x
         hn = np.diff(x)
-        h = _t(hn, y)
+        h = k["h"]
         n = len(x)
         delta = torch.diff(y, 1, -1) / h
-        w1 = _t(2 * hn[1:] + hn[:-1], y)
-        w2 = _t(hn[1:] + 2 * hn[:-1], y)
+        w1, w2 = k["w1"], k["w2"]
         d0s, d1s = delta[..., :-1], delta[..., 1:]
         same = torch.sign(d0s) * torch.sign(d1s) > 0
         delta_safe0 = torch.where(d0s == 0, 1.0, d0s)
@@ -158,9 +192,12 @@ class PChipSpline(CubicSpline):
 class AkimaSpline(CubicSpline):
     "Akima's interpolant (spline/akima.py), elementwise formulation."
 
-    def coefficients(self, y):
+    def _static(self):
+        return {"h": np.diff(self.x)}
+
+    def coefficients(self, y, k=None):
         x = self.x
-        dx = _t(np.diff(x), y)
+        dx = self._k(y, k)["h"]
         n = len(x)
         m = torch.diff(y, 1, -1) / dx
         mm = 2.0 * m[..., 0:1] - m[..., 1:2]
@@ -210,9 +247,12 @@ class BSpline(Spline):
         self._design = design
         self._fit_pinv = np.linalg.pinv(design(self.x))
 
-    def __call__(self, y, points):
+    def _plan(self, points):
         points = np.atleast_1d(np.asarray(points, dtype=np.float64))
-        return y @ _t(self._design(points), y).T
+        return {"design": self._design(points)}
+
+    def __call__(self, y, points, k=None):
+        return y @ self._k(y, k, points)["design"].T
 
     def fit_to(self, knot_values):
         "Control points whose spline least-squares matches values at knots."
