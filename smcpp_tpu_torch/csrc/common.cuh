@@ -123,7 +123,28 @@ int prepare(K kernel, size_t smem) {
 
 inline int padded(int M) { return ((M + 3) / 4) * 4; }
 
+// The emission table's route and the dynamic shared bytes of the library's
+// last launch of a kernel with a table: glob 1 where it read the table from
+// global memory (k_glob).  Written by launch_e and by the launchers that
+// plan their own (K1, K8); read through the entry point SMCPP_LAST_LAUNCH
+// defines, once per library.
+struct LaunchRecord {
+  long long glob, smem;
+};
+inline LaunchRecord last_launch{0, 0};
+
+inline void record_launch(bool glob, size_t smem) { last_launch = {glob ? 1 : 0, (long long)smem}; }
+
 }  // namespace smcpp
+
+// The library's entry point smcpp_<LIB>_last_launch(out): out[0] = glob,
+// out[1] = dynamic shared bytes of the last recorded launch.
+#define SMCPP_LAST_LAUNCH(LIB)                                   \
+  extern "C" int smcpp_##LIB##_last_launch(long long* out) {     \
+    out[0] = smcpp::last_launch.glob;                            \
+    out[1] = smcpp::last_launch.smem;                            \
+    return 0;                                                    \
+  }
 
 // Dispatch a runtime padded width MB onto the template instantiations.
 #define SMCPP_CASE(V, ...) \
@@ -157,5 +178,6 @@ int launch_e(K k_smem, K k_glob, size_t smem, size_t smem_g, dim3 grid,
   int e = smcpp::prepare(k, bytes);
   if (e) return e;
   k<<<grid, block, bytes, st>>>(args...);
+  smcpp::record_launch(!fits, bytes);
   return 0;
 }

@@ -356,3 +356,5 @@ int smcpp_dsc_sweep(const float* T, const float* E, const int32_t* keys,
 }
 
 }  // extern "C"
+
+SMCPP_LAST_LAUNCH(dsc_kernels)

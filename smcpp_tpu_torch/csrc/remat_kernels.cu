@@ -775,6 +775,7 @@ int smcpp_remat_sweep(const float* T, const float* E, const int32_t* keys,
   p.kernel<<<grid, 64, p.smem, (cudaStream_t)stream>>>(T, E, keys, valid, snaps, Q_end, S, L,
                                                         M, n_keys, blk, vec, gsum_group,
                                                         carries, u_start, xo_part, gsum_part);
+  record_launch(!p.smem_table, p.smem);
   return (int)cudaGetLastError();
 }
 
@@ -805,3 +806,5 @@ int smcpp_remat_sweep_plan(int S, int M, int n_keys, int bf16, int* out) {
 }
 
 }  // extern "C"
+
+SMCPP_LAST_LAUNCH(remat_kernels)

@@ -404,3 +404,5 @@ int smcpp_viterbi_paths_back(const int32_t* seg_exit, int S, int L, int M, int l
 }
 
 }  // extern "C"
+
+SMCPP_LAST_LAUNCH(viterbi_kernels)

@@ -37,18 +37,21 @@ _SIGNATURES = {
         "smcpp_asc_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
         "smcpp_asc_sweep_plan": [_I, _I, _I, _I, _P],
         "smcpp_asc_div_check": [_P, _P, _I, _P, _P],
+        "smcpp_window_kernels_last_launch": [_P],
     },
     "dsc_kernels.cu": {
         "smcpp_dsc_sweep": [
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
             _P, _P, _P, _P, _P,
         ],
+        "smcpp_dsc_kernels_last_launch": [_P],
     },
     "remat_kernels.cu": {
         "smcpp_remat_sweep": [
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
         ],
         "smcpp_remat_sweep_plan": [_I, _I, _I, _I, _P],
+        "smcpp_remat_kernels_last_launch": [_P],
     },
     "viterbi_kernels.cu": {
         "smcpp_viterbi_ops": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -56,6 +59,7 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         ],
         "smcpp_viterbi_paths_back": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "smcpp_viterbi_kernels_last_launch": [_P],
     },
     "boundary_kernels.cu": {
         "smcpp_boundary_products": [_P, _P, _I, _I, _I, _I, _P, _P],

@@ -125,14 +125,29 @@ def from_numpy(pi, T, E, device, dtype=torch.float32):
 
 class _Kernel:
     """A CUDA kernel's Python face: its name, the TPU-side function it
-    replaces, and ``launches``, the number of times this process launched
-    it (incremented where the kernel is launched, nowhere else)."""
+    replaces, and its counters, changed where the kernel is launched and
+    nowhere else: ``launches``, the number of times this process launched
+    it; and for a kernel with an emission table, from the launcher's own
+    choice (csrc/common.cuh:launch_e, or K1's and K8's plans), ``glob``, the
+    launches that read the table from global memory (its k_glob
+    instantiation), and ``smem_bytes``, the dynamic shared memory of its
+    last launch (None before the first, and for a kernel with no table)."""
 
     def __init__(self, name, source, replaces):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.glob = 0
+        self.smem_bytes = None
+
+    def took(self):
+        "Count the table route and shared bytes of the launch just made."
+        stem = os.path.splitext(os.path.basename(self.source))[0]
+        out = (ctypes.c_longlong * 2)()
+        _cuda.check(getattr(_cuda.lib(), f"smcpp_{stem}_last_launch")(out), self.name)
+        self.glob += int(out[0])
+        self.smem_bytes = int(out[1])
 
 
 SEGMENT_OPS = _Kernel(
@@ -283,6 +298,7 @@ def segment_ops_cuda(T, E, keys, valid, precision):
         ),
         SEGMENT_OPS.name,
     )
+    SEGMENT_OPS.took()
     return ops, logs
 
 
@@ -317,14 +333,14 @@ def asc_sweep_cuda(T, E, keys, valid, A_in, precision):
     alphas = torch.empty((S, L, M), dtype=cdt, device=T.device)
     alpha_end = torch.empty((S, M), dtype=torch.float32, device=T.device)
     ASC_SWEEP.launches += 1
-    _asc_launch(T, E, keys, valid, A_in, cdt, L, alphas, None, alpha_end,
-                ASC_SWEEP.name)
+    _asc_launch(T, E, keys, valid, A_in, cdt, L, alphas, None, alpha_end, ASC_SWEEP)
     return alphas, alpha_end
 
 
-def _asc_launch(T, E, keys, valid, A_in, cdt, blk, alphas, snaps, alpha_end, name):
-    """One launch of K1's kernel (smcpp_asc_sweep): the whole stream
-    (``alphas``), or the snapshot mode (``snaps``, every ``blk`` windows)."""
+def _asc_launch(T, E, keys, valid, A_in, cdt, blk, alphas, snaps, alpha_end, kernel):
+    """One launch of K1's kernel (smcpp_asc_sweep), counted as ``kernel``'s:
+    the whole stream (``alphas``), or the snapshot mode (``snaps``, every
+    ``blk`` windows)."""
     S, L = keys.shape
     _cuda.check(
         _cuda.lib().smcpp_asc_sweep(
@@ -333,8 +349,9 @@ def _asc_launch(T, E, keys, valid, A_in, cdt, blk, alphas, snaps, alpha_end, nam
             int(cdt == torch.bfloat16), blk, _ptr(alphas), _ptr(snaps),
             alpha_end.data_ptr(), _stream(T.device),
         ),
-        name,
+        kernel.name,
     )
+    kernel.took()
 
 
 def asc_sweep_plan(S, M, n_keys, bf16):
@@ -413,6 +430,7 @@ def _dsc_launch(kernel, T, E, keys, valid, alphas, Q_end, gam):
         ),
         kernel.name,
     )
+    kernel.took()
     return u_start, xo_part.sum(0), gsum_part.sum(0)
 
 
@@ -560,7 +578,7 @@ class AlphaRemat:
         "K1 over every window: the snapshots and alpha_end."
         ASC_SWEEP_REMAT.launches += 1
         _asc_launch(self.T, self.E, self.keys, self.valid, self.A_in, self.cdt,
-                    self.block, None, self.snaps, self.alpha_end, ASC_SWEEP_REMAT.name)
+                    self.block, None, self.snaps, self.alpha_end, ASC_SWEEP_REMAT)
 
     def sweep(self):
         "K8 over every block, the last first: u_start and the partials."
@@ -578,6 +596,7 @@ class AlphaRemat:
             ),
             REMAT_SWEEP.name,
         )
+        REMAT_SWEEP.took()
 
     def finish(self):
         """(alpha_end (S, M), u_start (S, M), xo (M, M) f64, gsum (n_keys, M)
@@ -631,6 +650,7 @@ def viterbi_ops_cuda(T, E, keys, valid):
         ),
         VITERBI_OPS.name,
     )
+    VITERBI_OPS.took()
     return ops
 
 
@@ -693,21 +713,23 @@ class ViterbiPaths:
 
     def fwd(self):
         "Launch 1: the forward sweep, writing the backpointer scratch."
-        self._fwd(None, 0, self.L, self.L, self.bp, None, VITERBI_PATHS.name)
+        self._fwd(None, 0, self.L, self.L, self.bp, None, VITERBI_PATHS)
 
     def back(self):
         "Launch 2: the backtrace; returns path (S, L) int32."
         self._back(self.seg_exit, 0, self.L, None, VITERBI_PATHS.name)
         return self.path
 
-    def _fwd(self, V_in, lb, le, blk, bp, snaps, name):
-        "The forward kernel over windows [lb, le) (smcpp_viterbi_paths_fwd)."
+    def _fwd(self, V_in, lb, le, blk, bp, snaps, kernel):
+        """The forward kernel over windows [lb, le) (smcpp_viterbi_paths_fwd),
+        counted as ``kernel``'s."""
         _cuda.check(self._lib.smcpp_viterbi_paths_fwd(
             self.logT.data_ptr(), self.logE.data_ptr(), self.keys.data_ptr(),
             self.valid.data_ptr(), self.seg_entry.data_ptr(), _ptr(V_in), self.S,
             self.L, self.M, self.n_keys, lb, le, blk, int(self.plan["shared_table"]),
             _ptr(bp), _ptr(snaps), self._stream,
-        ), name)
+        ), kernel.name)
+        kernel.took()
 
     def _back(self, state_in, lb, le, state_out, name):
         "The backtrace kernel over windows [lb, le) (smcpp_viterbi_paths_back)."
@@ -785,14 +807,14 @@ class ViterbiPathsBlocked(ViterbiPaths):
     def fwd_snap(self):
         "The forward over every window, writing the V entering each block."
         VITERBI_FWD_BLOCKED.launches += 1
-        self._fwd(None, 0, self.L, self.block, None, self.snaps, VITERBI_FWD_BLOCKED.name)
+        self._fwd(None, 0, self.L, self.block, None, self.snaps, VITERBI_FWD_BLOCKED)
 
     def fwd_block(self, b):
         "The forward over block b from its snapshot, writing its backpointers."
         lb = b * self.block
         VITERBI_FWD_BLOCKED.launches += 1
         self._fwd(self.snaps[b], lb, lb + self.block, self.block, self.bp, None,
-                  VITERBI_FWD_BLOCKED.name)
+                  VITERBI_FWD_BLOCKED)
 
     def back_block(self, b):
         "The backtrace over block b; returns path (S, L) int32."
