@@ -185,6 +185,14 @@ bit-identical (``check_k6``).  Its plan, dependent depth (c + n_chunks + c
 steps, printed beside its bound) and the CUDA-event times of its setup and
 three phases are printed there too (``k6_phases``).
 
+K4 applies each run of equal keys whole: a run shorter than
+``VITERBI_RUN_MIN`` windows a window at a time, a longer one as a binary
+power of its operator.  On every input set it must equal its plain twin of
+that run plan (``viterbi_ops_runs_plain``) bit for bit; its bound prices
+the products the run plan needs (``viterbi_ops_counts``), and the window
+walk's bound (one product a valid window) is printed beside it at the
+posterior's shape.
+
 K7 is K6's chunked scan in max-plus, four launches counted as one
 (``ViterbiBoundary``: f64 chunk products, an f64 scan over the chunks, every
 chunk's f32 forward, every chunk's backtrace).  On every input set it must
@@ -282,14 +290,16 @@ def card():
     return smi
 
 
-def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False, block=None):
+def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False, block=None,
+          walk=False):
     """(bound_ms, bound_by) of one launch of kernel ``name`` on these inputs:
     the larger of its operations over the peak rate of their pipe (and all
     of them over the issue rate) and the bytes it must move (each input read
     once, each output written once) over the memory rate.  ``elt`` is the
     byte width of the alpha stream; ``alu_at_fma`` gives the earlier model:
     a max or a select one operation at the FMA rate, no issue limit, and
-    K5's candidate an add, a max and a select (no compare).
+    K5's candidate an add, a max and a select (no compare); ``walk`` prices
+    K4 at one operator product a valid window, its earlier form.
     Operations count the valid windows (an invalid window skips the step's
     arithmetic); streams count every window.
 
@@ -305,8 +315,12 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False, block
                           valid, A_in in, the alpha stream out
       K2 dsc_sweep        2 M^2 f32 FMA and M^2 f64 add; the alpha stream in
       K2g dsc_sweep_gamma K2, plus the (S, L, M) f32 gamma stream out
-      K4 viterbi_ops      M^3 add (FMA pipe) and M^3 max (ALU pipe); (S,
-                          M, M) out
+      K4 viterbi_ops      M^3 add (FMA pipe) and M^3 max (ALU pipe) an
+                          operator product, the products of the run plan
+                          (window_kernel.viterbi_ops_counts: one a window
+                          of a run shorter than VITERBI_RUN_MIN, bitlen(r)
+                          - 1 + popcount(r) for a longer run of r); (S, M,
+                          M) out
       K5 viterbi_paths    per candidate (M^2): an add (FMA pipe), then a
                           compare, a select of the score and a select of
                           the index (ALU pipe: the first-index argmax
@@ -351,7 +365,10 @@ def bound(name, E, keys, valid, elt=4, cuda_cores=False, alu_at_fma=False, block
         if name == "dsc_sweep_gamma":
             b += 4 * W * M
     elif name == "viterbi_ops":
-        f32, alu, b = nv * M**3, nv * M**3, b + 4 * S * M * M
+        from smcpp_tpu_torch.ops import window_kernel as wk
+
+        products = nv if walk else wk.viterbi_ops_counts(keys, valid)[0]
+        f32, alu, b = products * M**3, products * M**3, b + 4 * S * M * M
     elif name == "viterbi_paths":
         f32, b = nv * M * M, b + 4 * W + 8 * S
         alu = (2 if alu_at_fma else 3) * nv * M * M
@@ -641,7 +658,8 @@ def compare(tag, T, E, keys, valid, A_in, Q_end, prec, reps):
 
 
 def check_equal(name, got, want):
-    "K4, K5 and K7 are exact (adds and maxima): the kernel must equal the plain."
+    """K4, K5 and K7 are exact (adds and maxima): the kernel must equal its
+    plain version (K4's: the twin of its run plan)."""
     import torch
 
     if got.shape != want.shape or not torch.equal(got, want):
@@ -669,9 +687,9 @@ def compare_decode(tag, T, E, keys, valid, A_in, Q_end, entry, exit_, reps):
     tgp = cuda_ms(lambda: wk.dsc_sweep_plain(T, E, keys, valid, al, Q_end, True), 1)
     del al
     e4 = check_equal(f"viterbi_ops [{tag}]", wk.viterbi_ops_cuda(T, E, keys, valid),
-                     wk.viterbi_ops_plain(T, E, keys, valid))
+                     wk.viterbi_ops_runs_plain(T, E, keys, valid))
     t4 = cuda_ms(lambda: wk.viterbi_ops_cuda(T, E, keys, valid), reps)
-    t4p = cuda_ms(lambda: wk.viterbi_ops_plain(T, E, keys, valid), 1)
+    t4p = cuda_ms(lambda: wk.viterbi_ops_runs_plain(T, E, keys, valid), 1)
     rec = {
         "dsc_sweep_gamma": (eg, tg, tgp, *bound("dsc_sweep_gamma", E, keys, valid)),
         "viterbi_ops": (e4, t4, t4p, *bound("viterbi_ops", E, keys, valid)),
@@ -1403,6 +1421,9 @@ def posterior_breakdown(im, pi, T, E):
         + ", ".join(f"{n} {a[0]:.4f} ({a[1]}) / {b[0]:.4f} ({b[1]})" for n, a, b in [
             ("viterbi_ops (K4)", bound("viterbi_ops", E, keys, valid),
              bound("viterbi_ops", E, keys, valid, alu_at_fma=True)),
+            ("viterbi_ops (K4) as the window walk", bound("viterbi_ops", E, keys, valid,
+                                                          walk=True),
+             bound("viterbi_ops", E, keys, valid, alu_at_fma=True, walk=True)),
             ("boundary states (K7)", scan_bound("viterbi_boundary", M, S, soc),
              scan_bound("viterbi_boundary", M, S, soc, alu_at_fma=True)),
             ("viterbi_paths (K5)", bound("viterbi_paths", E, keys, valid),

@@ -11,17 +11,23 @@
 //
 // What bounds them: serial depth along the L windows of a segment, at one
 // warp per segment.  K4 carries its operator in registers as K3 does and is
-// bound by the M^2 max-adds per lane per window.  K5's forward reads V from
+// bound by the M^2 max-adds per lane per operator product; it runs one
+// product a window on short runs of equal keys and bitlen(r) - 1 +
+// popcount(r) on a run of r >= RUN_MIN windows (binary powers of the run's
+// operator).  K5's forward reads V from
 // shared memory (no shuffles in the max), so what is left is its compare and
 // select instructions, three per candidate j per lane, which run at half
 // the rate of f32 adds on sm_90; its backtrace copies the backpointers into
 // shared memory 32 windows at a time, ahead of a walk of one shared-memory
 // load per window, and is bound by the stream's bytes.
 //
-// Both are exact: every step is f32 adds and maxima, which round the same
-// way in any order, so the kernels reproduce their plain versions bit for
-// bit, and K5's backpointer is the lowest maximizing index, as jnp.argmax
-// gives.  Padded rows and columns (M < MB) hold -inf in log T and log E and
+// Both are exact: every step is f32 adds and maxima, each rounded once, so
+// the kernels reproduce their plain versions bit for bit: K5 its walk
+// (viterbi_paths_plain), with the lowest maximizing index as its
+// backpointer, as jnp.argmax gives; K4 its plain twin of the same run plan
+// and product order (viterbi_ops_runs_plain), which groups each path's sums
+// differently from the window walk (viterbi_ops_plain) on runs of RUN_MIN
+// or more.  Padded rows and columns (M < MB) hold -inf in log T and log E and
 // are masked out of every maximum; "impossible" entries carry -1e30 as in
 // the reference (_mp_neg).
 
@@ -64,29 +70,142 @@ __host__ __device__ __forceinline__ int back_warp_bytes(int M) {
 
 // ---------------------------------------------------------------------------
 // K4: lane k owns column k of the segment's max-plus operator W (W[i][k] =
-// best log score from entry state k to state i).  A valid window does
-// W[i][k] <- max_j(logT[j][i] + W[j][k]) + logE[key][i], then subtracts the
-// maximum over (i, k); an invalid one keeps W.  log T^T sits in shared
-// memory (row i contiguous, read as float4 broadcasts).
+// best log score from entry state k to state i).  The window of key q applies
+// A_q, A_q[i][j] = logT[j][i] + logE[q][i], and W is renormalised to a
+// maximum of 0 over (i, k); an invalid window is the identity.
+//
+// The warp finds the segment's runs of equal keys, 32 windows at a time (a
+// ballot of the windows that end the open run: an invalid window, or one
+// whose key or validity differs from the window before), and applies each
+// run whole once it ends.  A run of r < RUN_MIN windows is walked a window at
+// a time, W[i][k] <- max_j(logT[j][i] + W[j][k]) + logE[q][i], the arithmetic
+// of viterbi_ops_plain.  A longer run applies A_q^r by binary powers: B = A_q
+// in a per-warp (MB, MB) tile of shared memory; for each bit of r from the
+// lowest, W <- B (x) W if the bit is set, then B <- B (x) B; every product is
+// renormalised to a maximum of 0 and its "impossible" entries clamped at
+// MP_NEG, so repeated squaring cannot overflow.  That is bitlen(r) - 1 +
+// popcount(r) products of M^3 candidates in place of r; the plain twin of
+// this order is viterbi_ops_runs_plain.  Rows of log T^T and of B sit in
+// shared memory (row i contiguous, read as float4 broadcasts); lane k keeps
+// its column of W, and of B while squaring, in registers.
+//
+// counts (two uint64, optional): each warp adds the operator products it ran
+// and the valid windows it covered (one atomicAdd each).
 // ---------------------------------------------------------------------------
+constexpr int RUN_MIN = 8;  // the shortest run applied as a power
+
+// Y[i] = max_j(R[i][j] + X[j]): rows R (MB, MB) in shared memory, X lane k's
+// column.
+template <int MB>
+__device__ __forceinline__ void mp_rows(const float* R, const float (&X)[MB],
+                                        float (&Y)[MB]) {
+#pragma unroll
+  for (int i = 0; i < MB; ++i) {
+    const float4* tr = reinterpret_cast<const float4*>(R + i * MB);
+    float best = -INFINITY;
+#pragma unroll
+    for (int j4 = 0; j4 < MB / 4; ++j4) {
+      const float4 t4 = tr[j4];
+      best = fmaxf(best, t4.x + X[4 * j4]);
+      best = fmaxf(best, t4.y + X[4 * j4 + 1]);
+      best = fmaxf(best, t4.z + X[4 * j4 + 2]);
+      best = fmaxf(best, t4.w + X[4 * j4 + 3]);
+    }
+    Y[i] = best;
+  }
+}
+
+// One window: W <- A_key (x) W, renormalised (the walk).
+template <int MB, bool SMEM_E>
+__device__ __forceinline__ void mp_walk(float (&W)[MB], const float* sLT, const float* er,
+                                        int M, bool live) {
+  float W2[MB];
+  mp_rows<MB>(sLT, W, W2);
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < MB; ++i) {
+    const float e = (SMEM_E || i < M) ? table<SMEM_E>(er, i) : -INFINITY;
+    W2[i] = W2[i] + e;
+    if (i < M) mx = fmaxf(mx, W2[i]);
+  }
+  mx = warp_max(live ? mx : -INFINITY);
+#pragma unroll
+  for (int i = 0; i < MB; ++i) W[i] = W2[i] - mx;
+}
+
+// A power's product, renormalised: Y <- max(Y - max over the live (i, k),
+// MP_NEG); padded rows and columns -inf.
+template <int MB>
+__device__ __forceinline__ void mp_renorm(float (&Y)[MB], int M, bool live) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < MB; ++i)
+    if (i < M) mx = fmaxf(mx, Y[i]);
+  mx = warp_max(live ? mx : -INFINITY);
+#pragma unroll
+  for (int i = 0; i < MB; ++i) Y[i] = (live && i < M) ? fmaxf(Y[i] - mx, MP_NEG) : -INFINITY;
+}
+
+// A run of r >= 1 windows of one key: W <- A_key^r (x) W by binary powers,
+// B in the warp's tile sB.
+template <int MB, bool SMEM_E>
+__device__ __forceinline__ void mp_power(float (&W)[MB], float* sB, const float* sLT,
+                                         const float* er, int r, int M, int lane,
+                                         bool live) {
+  __syncwarp();  // every lane is done reading the last run's B
+  if (lane < MB) {
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+      sB[i * MB + lane] =
+          sLT[i * MB + lane] + ((SMEM_E || i < M) ? table<SMEM_E>(er, i) : -INFINITY);
+  }
+  __syncwarp();
+  for (;;) {
+    if (r & 1) {
+      float Y[MB];
+      mp_rows<MB>(sB, W, Y);
+      mp_renorm<MB>(Y, M, live);
+#pragma unroll
+      for (int i = 0; i < MB; ++i) W[i] = Y[i];
+    }
+    r >>= 1;
+    if (r == 0) break;
+    float Bc[MB], C[MB];
+#pragma unroll
+    for (int j = 0; j < MB; ++j) Bc[j] = lane < MB ? sB[j * MB + lane] : -INFINITY;
+    mp_rows<MB>(sB, Bc, C);
+    mp_renorm<MB>(C, M, live);
+    __syncwarp();  // every lane has read B
+    if (lane < MB) {
+#pragma unroll
+      for (int i = 0; i < MB; ++i) sB[i * MB + lane] = C[i];
+    }
+    __syncwarp();  // B's new entries are visible to every lane
+  }
+}
+
 template <int MB, bool SMEM_E>
 __global__ void __launch_bounds__(128) viterbi_ops_kernel(
     const float* __restrict__ logT, const float* __restrict__ logE,
     const int32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
-    int S, int L, int M, int n_keys, float* __restrict__ ops) {
+    int S, int L, int M, int n_keys, float* __restrict__ ops,
+    unsigned long long* __restrict__ counts) {
   extern __shared__ float4 smem4[];
   float* sLT = reinterpret_cast<float*>(smem4);  // (MB, MB): sLT[i][j] = logT[j][i]
   for (int idx = threadIdx.x; idx < MB * MB; idx += blockDim.x) {
     int i = idx / MB, j = idx % MB;
     sLT[idx] = (i < M && j < M) ? logT[j * M + i] : -INFINITY;
   }
+  float* tiles = sLT + MB * MB;  // one (MB, MB) tile of B a warp
   int ES;
-  const float* tE = log_table<MB, SMEM_E>(sLT + MB * MB, logE, M, n_keys, ES);
+  const float* tE =
+      log_table<MB, SMEM_E>(tiles + WARPS_PER_BLOCK * MB * MB, logE, M, n_keys, ES);
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = blockIdx.x * (blockDim.x >> 5) + warp;
   if (s >= S) return;
+  float* sB = tiles + warp * MB * MB;
   const bool live = lane < M;
   float W[MB];
 #pragma unroll
@@ -94,46 +213,60 @@ __global__ void __launch_bounds__(128) viterbi_ops_kernel(
   const int32_t* kr = keys + (size_t)s * L;
   const uint8_t* vr = valid + (size_t)s * L;
 
-  for (int l0 = 0; l0 < L; l0 += 32) {
+  int products = 0, windows = 0;  // warp-uniform
+  int run_key = 0, run_len = 0;   // the open run (warp-uniform)
+  int next_key = 0, next_v = 0;   // this lane's window of the next chunk
+  if (lane < L) {
+    next_key = kr[lane];
+    next_v = vr[lane] != 0;
+  }
+  // Chunks of 32 windows; the window after the last (in the last chunk, or
+  // in a chunk of its own when 32 divides L) ends the last run.
+  for (int l0 = 0; l0 <= L; l0 += 32) {
     const int nstep = min(32, L - l0);
-    int my_key = 0, my_v = 0;
-    if (lane < nstep) {
-      my_key = kr[l0 + lane];
-      my_v = vr[l0 + lane];
+    const int my_key = next_key, my_v = next_v;
+    next_key = next_v = 0;
+    if (l0 + 32 + lane < L) {
+      next_key = kr[l0 + 32 + lane];
+      next_v = vr[l0 + 32 + lane] != 0;
     }
-    for (int t = 0; t < nstep; ++t) {
-      const int key = __shfl_sync(FULL, my_key, t);
-      const int v = __shfl_sync(FULL, my_v, t);
-      if (v) {  // warp-uniform
-        const float* er = tE + key * ES;
-        float W2[MB];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int i = 0; i < MB; ++i) {
-          const float4* tr = reinterpret_cast<const float4*>(sLT + i * MB);
-          float best = -INFINITY;
-#pragma unroll
-          for (int j4 = 0; j4 < MB / 4; ++j4) {
-            const float4 t4 = tr[j4];
-            best = fmaxf(best, t4.x + W[4 * j4]);
-            best = fmaxf(best, t4.y + W[4 * j4 + 1]);
-            best = fmaxf(best, t4.z + W[4 * j4 + 2]);
-            best = fmaxf(best, t4.w + W[4 * j4 + 3]);
-          }
-          const float e = (SMEM_E || i < M) ? table<SMEM_E>(er, i) : -INFINITY;
-          W2[i] = best + e;
-          if (i < M) mx = fmaxf(mx, W2[i]);
-        }
-        mx = warp_max(live ? mx : -INFINITY);
-#pragma unroll
-        for (int i = 0; i < MB; ++i) W[i] = W2[i] - mx;
+    int prev_key = __shfl_up_sync(FULL, my_key, 1);
+    int prev_v = __shfl_up_sync(FULL, my_v, 1);
+    if (lane == 0) {
+      prev_key = run_key;
+      prev_v = run_len > 0;
+    }
+    unsigned ends = __ballot_sync(
+        FULL, lane < nstep ? (!my_v || !prev_v || my_key != prev_key) : lane == nstep);
+    windows += __popc(__ballot_sync(FULL, lane < nstep && my_v));
+    int t = 0;  // windows [t, the next end) extend the open run
+    while (ends) {
+      const int b = __ffs(ends) - 1;
+      ends &= ends - 1;
+      // the run that ends before window b, applied whole
+      const int r = run_len + b - t;
+      const float* er = tE + run_key * ES;
+      if (r >= RUN_MIN) {
+        mp_power<MB, SMEM_E>(W, sB, sLT, er, r, M, lane, live);
+        products += (31 - __clz(r)) + __popc(r);
+      } else {
+        for (int k = 0; k < r; ++k) mp_walk<MB, SMEM_E>(W, sLT, er, M, live);
+        products += r;
       }
+      run_key = __shfl_sync(FULL, my_key, b);
+      run_len = __shfl_sync(FULL, my_v, b);
+      t = b + 1;
     }
+    run_len += max(nstep - t, 0);
   }
   if (live) {
 #pragma unroll
     for (int i = 0; i < MB; ++i)
       if (i < M) ops[((size_t)s * M + i) * M + lane] = W[i];
+  }
+  if (lane == 0 && counts != nullptr) {
+    atomicAdd(counts, (unsigned long long)products);
+    atomicAdd(counts + 1, (unsigned long long)windows);
   }
 }
 
@@ -334,20 +467,24 @@ __global__ void __launch_bounds__(128) viterbi_back_kernel(
 
 extern "C" {
 
-// ops (S, M, M) f32 from logT (M, M), logE (n_keys, M) f32.
+// ops (S, M, M) f32 from logT (M, M), logE (n_keys, M) f32; counts, when
+// non-null, two uint64 to which the launch adds its operator products and
+// its valid windows.
 int smcpp_viterbi_ops(const float* logT, const float* logE, const int32_t* keys,
                       const uint8_t* valid, int S, int L, int M, int n_keys,
-                      float* ops, void* stream) {
+                      float* ops, unsigned long long* counts, void* stream) {
   if (M < 2 || M > 32 || S <= 0 || L <= 0 || n_keys <= 0) return (int)cudaErrorInvalidValue;
   const int MBV = padded(M);
-  const size_t smem_t = sizeof(float) * (size_t)MBV * MBV;
+  // log T^T and one tile of B a warp
+  const size_t smem_t = sizeof(float) * (size_t)MBV * MBV * (1 + WARPS_PER_BLOCK);
   const size_t smem = smem_t + sizeof(float) * (size_t)n_keys * MBV;
   const dim3 grid((S + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK), block(32 * WARPS_PER_BLOCK);
   cudaStream_t st = (cudaStream_t)stream;
   int e = 0;
   SMCPP_DISPATCH(MBV, {
     e = launch_e(viterbi_ops_kernel<MB_, true>, viterbi_ops_kernel<MB_, false>, smem,
-                 smem_t, grid, block, st, logT, logE, keys, valid, S, L, M, n_keys, ops);
+                 smem_t, grid, block, st, logT, logE, keys, valid, S, L, M, n_keys, ops,
+                 counts);
   });
   if (e) return e;
   return (int)cudaGetLastError();

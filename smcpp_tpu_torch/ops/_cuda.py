@@ -54,7 +54,7 @@ _SIGNATURES = {
         "smcpp_remat_kernels_last_launch": [_P],
     },
     "viterbi_kernels.cu": {
-        "smcpp_viterbi_ops": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+        "smcpp_viterbi_ops": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
         "smcpp_viterbi_paths_fwd": [
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         ],

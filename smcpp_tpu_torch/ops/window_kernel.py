@@ -24,7 +24,10 @@ decompressed to unit windows and cut into S segments of L windows
            contig boundaries.
 
 The Viterbi is the same two-level scheme in max-plus: per-segment max-plus
-operators (K4), a per-contig scan over them for the boundary states and its
+operators (K4, which applies each run of equal keys whole: a window at a
+time below ``VITERBI_RUN_MIN`` windows, else as a binary power of the run's
+operator; its plain twin is ``viterbi_ops_runs_plain``), a per-contig scan
+over them for the boundary states and its
 backtrace (K7), then each segment's interior path from its entry state
 (K5).
 
@@ -166,7 +169,32 @@ DSC_SWEEP_GAMMA = _Kernel(
     "dsc_sweep_gamma", "smcpp_tpu_torch/csrc/dsc_kernels.cu",
     "smcpp_tpu/ops/window_kernel.py:536",
 )
-VITERBI_OPS = _Kernel(
+class _RunKernel(_Kernel):
+    """K4's face: a ``_Kernel`` with two counters that its launches add to on
+    the device, read only on request (each read synchronises): ``products``,
+    the max-plus operator products the kernel ran, and ``windows``, the valid
+    windows it covered (one product a window is the walk)."""
+
+    def __init__(self, *a):
+        super().__init__(*a)
+        self._counts = {}  # device -> (2,) int64: products, windows
+
+    def counts(self, device):
+        "The device's counter tensor, which the launch adds to."
+        if device not in self._counts:
+            self._counts[device] = torch.zeros(2, dtype=torch.int64, device=device)
+        return self._counts[device]
+
+    @property
+    def products(self):
+        return sum(int(c[0]) for c in self._counts.values())
+
+    @property
+    def windows(self):
+        return sum(int(c[1]) for c in self._counts.values())
+
+
+VITERBI_OPS = _RunKernel(
     "viterbi_ops", "smcpp_tpu_torch/csrc/viterbi_kernels.cu",
     "smcpp_tpu/ops/window_kernel.py:787",
 )
@@ -631,9 +659,14 @@ def viterbi_ops_cuda(T, E, keys, valid):
     """K4 (replaces the lax.scan of window_kernel.py:viterbi_segment_ops).
 
     What bounds it: serial depth along L and M^2 max-adds per lane per
-    window.  Design: K3's in max-plus; one warp per segment, lane k owns
-    column k of the (M, M) operator in registers, log T^T sits in shared
-    memory and is read as float4 broadcasts.  Exact: adds and maxima only.
+    operator product.  Design: K3's in max-plus; one warp per segment, lane k
+    owns column k of the (M, M) operator in registers, log T^T sits in shared
+    memory and is read as float4 broadcasts.  The warp applies each run of
+    equal keys whole: a run shorter than ``VITERBI_RUN_MIN`` windows one
+    window at a time (viterbi_ops_plain's step), a longer one as a power of
+    its operator, bitlen(r) - 1 + popcount(r) products in place of r.  Exact:
+    adds and maxima only; equal to ``viterbi_ops_runs_plain`` bit for bit.
+    Adds its products and valid windows to ``VITERBI_OPS``'s counters.
     Returns Wops (S, M, M) f32, laid out (S, i, k)."""
     _check_inputs(T, E, keys, valid)
     S, L = keys.shape
@@ -646,7 +679,8 @@ def viterbi_ops_cuda(T, E, keys, valid):
     _cuda.check(
         lib.smcpp_viterbi_ops(
             logT.data_ptr(), logE.data_ptr(), keys.data_ptr(), valid.data_ptr(),
-            S, L, M, E.shape[0], ops.data_ptr(), _stream(T.device),
+            S, L, M, E.shape[0], ops.data_ptr(),
+            VITERBI_OPS.counts(T.device).data_ptr(), _stream(T.device),
         ),
         VITERBI_OPS.name,
     )
@@ -1321,6 +1355,95 @@ def viterbi_ops_plain(T, E, keys, valid):
         W2 = W2 - torch.amax(W2, (1, 2), keepdim=True)
         W = torch.where(valid[:, l, None, None], W2, W)
     return W.contiguous()
+
+
+# K4's cut-off (RUN_MIN in csrc/viterbi_kernels.cu): a run of equal keys
+# shorter than this is walked a window at a time, a longer one applied as a
+# power of its operator.
+VITERBI_RUN_MIN = 8
+
+
+def viterbi_runs(keys, valid):
+    """Each segment's runs of equal keys, as K4 finds them: maximal stretches
+    of valid windows of one key; an invalid window ends a run and belongs to
+    none.  Returns (seg, key, length) int64 numpy arrays, the runs in segment
+    order, then window order."""
+    k = np.asarray(keys.cpu() if torch.is_tensor(keys) else keys)
+    v = np.asarray(valid.cpu() if torch.is_tensor(valid) else valid).astype(bool)
+    start = v.copy()
+    start[:, 1:] &= ~v[:, :-1] | (k[:, 1:] != k[:, :-1])
+    run = np.cumsum(start.reshape(-1)) - 1  # each window's run, among valid ones
+    first = np.flatnonzero(start.reshape(-1))
+    length = np.bincount(run[v.reshape(-1)], minlength=len(first))
+    return first // k.shape[1], k.reshape(-1)[first].astype(np.int64), length
+
+
+def run_products(r):
+    """K4's max-plus operator products for runs of r >= 0 windows: r below
+    ``VITERBI_RUN_MIN`` (the walk), else bitlen(r) - 1 squarings and
+    popcount(r) products into the segment's operator."""
+    r = np.asarray(r, np.int64)
+    squarings = np.floor(np.log2(np.maximum(r, 1))).astype(np.int64)
+    ones = sum((r >> b) & 1 for b in range(63))
+    return np.where(r < VITERBI_RUN_MIN, r, squarings + ones)
+
+
+def viterbi_ops_counts(keys, valid):
+    """(products, windows): what one K4 launch on these windows adds to its
+    counters, from the run plan (``viterbi_runs``, ``run_products``)."""
+    _, _, length = viterbi_runs(keys, valid)
+    return int(run_products(length).sum()), int(length.sum())
+
+
+def viterbi_ops_runs_plain(T, E, keys, valid):
+    """K4's algorithm as plain torch, its twin: each segment's runs
+    (``viterbi_runs``) in order; a run of r < ``VITERBI_RUN_MIN`` windows of
+    key q takes r of viterbi_ops_plain's steps, a longer one applies A^r, A
+    = A_q (A[i][j] = log T[j, i] + log E[q, i]), by binary powers: B = A;
+    for each bit of r from the lowest, W <- B (x) W where the bit is set,
+    then B <- B (x) B (none after the highest bit); each power's product P
+    is renormalised as max(P - max P, -1e30).  Every entry is one rounded
+    add and maxima, in the kernel's order, so K4 equals it bit for bit on
+    one device; it equals the walk (``viterbi_ops_plain``) up to the
+    grouping of each path's sums.  Returns Wops (S, M, M), laid out (S, i,
+    k)."""
+    S, L = keys.shape
+    M = T.shape[0]
+    dt, dev = E.dtype, T.device
+    logT = torch.log(T)  # [j, i]
+    logE = torch.log(E)
+    neg = _mp_neg(dt, dev)
+    eye = torch.where(torch.eye(M, dtype=torch.bool, device=dev), 0.0, neg)
+
+    def prod(R, X):  # (R (x) X)[i, k] = max_j R[i, j] + X[j, k]
+        return torch.amax(R[:, :, None] + X[None, :, :], 1)
+
+    def renorm(P):
+        return torch.clamp_min(P - torch.amax(P), neg)
+
+    out = torch.empty((S, M, M), dtype=dt, device=dev)
+    seg, key, length = viterbi_runs(keys, valid)
+    bounds = np.searchsorted(seg, np.arange(S + 1))
+    for s in range(S):
+        W = eye
+        for q, r in zip(key[bounds[s]:bounds[s + 1]].tolist(),
+                        length[bounds[s]:bounds[s + 1]].tolist()):
+            le = logE[q]
+            if r < VITERBI_RUN_MIN:
+                for _ in range(r):
+                    W2 = torch.amax(logT[:, :, None] + W[:, None, :], 0) + le[:, None]
+                    W = W2 - torch.amax(W2)
+                continue
+            B = logT.T + le[:, None]
+            while True:
+                if r & 1:
+                    W = renorm(prod(B, W))
+                r >>= 1
+                if r == 0:
+                    break
+                B = renorm(prod(B, B))
+        out[s] = W
+    return out
 
 
 def _viterbi_forward(logT, logE, keys, valid, V, l0, l1, bp=None):

@@ -221,7 +221,7 @@ def test_large_key_tables_match_plain(dev, n_keys, M, precision, rtol):
     *_, gam_p = wk.dsc_sweep_plain(T, E, keys, valid, alphas_p, Q_end, True)
     _close(gam, gam_p, 1e-5, 1e-7)
     W = wk.viterbi_ops_cuda(T, E, keys, valid)
-    assert torch.equal(W, wk.viterbi_ops_plain(T, E, keys, valid))
+    assert torch.equal(W, wk.viterbi_ops_runs_plain(T, E, keys, valid))
     entry, exit_ = _states(7, 24, M, dev)
     path = wk.viterbi_paths_cuda(T, E, keys, valid, entry, exit_)
     torch.cuda.synchronize()
@@ -263,7 +263,93 @@ def test_viterbi_ops_matches_plain(dev, M):
     W = wk.viterbi_ops_cuda(T, E, keys, valid)
     torch.cuda.synchronize()
     assert wk.VITERBI_OPS.launches == before + 1
-    assert torch.equal(W, wk.viterbi_ops_plain(T, E, keys, valid))
+    assert torch.equal(W, wk.viterbi_ops_runs_plain(T, E, keys, valid))
+
+
+def _run_problem(seed, S, L, M, n_keys, kind, dev):
+    "tests/_viterbi_runs.py's inputs on the card."
+    from _viterbi_runs import run_inputs
+
+    return tuple(torch.as_tensor(x, device=dev)
+                 for x in run_inputs(seed, S, L, M, n_keys, kind))
+
+
+RUN_KINDS = ["mixed", "one_key", "alternating", "chunks", "zeros"]
+
+
+@pytest.mark.parametrize("kind", RUN_KINDS)
+@pytest.mark.parametrize("M,n_keys", [(m, 63) for m in MS] + [(32, 2000)],
+                         ids=[f"M{m}" for m in MS] + ["M32-k_glob"])
+def test_viterbi_ops_runs_match_twin(dev, M, n_keys, kind):
+    """K4 on runs of equal keys (walked below the cut-off, powers above it)
+    equals its plain twin bit for bit, on both table routes (2,000 keys at
+    M = 32 read the table from global memory); two launches are
+    bit-identical; the counters add the products and valid windows of the
+    run plan."""
+    T, E, keys, valid = _run_problem(21, 24, 999, M, n_keys, kind, dev)
+    p0, w0, g0 = wk.VITERBI_OPS.products, wk.VITERBI_OPS.windows, wk.VITERBI_OPS.glob
+    W = wk.viterbi_ops_cuda(T, E, keys, valid)
+    W2 = wk.viterbi_ops_cuda(T, E, keys, valid)
+    torch.cuda.synchronize()
+    assert wk.VITERBI_OPS.glob == g0 + 2 * (n_keys == 2000)
+    assert torch.equal(W, W2)
+    assert torch.equal(W, wk.viterbi_ops_runs_plain(T, E, keys, valid))
+    products, windows = wk.viterbi_ops_counts(keys, valid)
+    assert wk.VITERBI_OPS.products - p0 == 2 * products
+    assert wk.VITERBI_OPS.windows - w0 == 2 * windows
+    if kind == "alternating":
+        assert products == windows
+
+
+@pytest.mark.parametrize("M", [2, 15, 32])
+def test_viterbi_ops_agrees_with_the_walk(dev, M):
+    """K4 against the window walk (viterbi_ops_plain) on runs of equal keys:
+    the same entries impossible, the rest within the reassociation bound of
+    tests/test_torch_viterbi_ops_runs.py (6 L eps (|W| + |log T| + |log
+    E|)), and K7's boundary states from either set of operators agreeing by
+    its rule (viterbi_boundary_agreement, scored on the walk's)."""
+    S, L = 24, 999
+    T, E, keys, valid = _run_problem(22, S, L, M, 63, "mixed", dev)
+    W = wk.viterbi_ops_cuda(T, E, keys, valid).double().cpu()
+    Ww = wk.viterbi_ops_plain(T, E, keys, valid)
+    Wwd = Ww.double().cpu()
+    imp = Wwd <= -1e29
+    assert torch.equal(W <= -1e29, imp)
+    big = sum(float(x.abs().max()) for x in (Wwd[~imp], torch.log(T), torch.log(E)))
+    assert float((W - Wwd)[~imp].abs().max()) <= 6 * L * 2.0**-24 * big
+    soc = _boundary_case("uneven", S, 22)[0]
+    pi = torch.full((M,), 1.0 / M, device=dev)
+    got = wk.viterbi_boundary_cuda(pi, W.float().to(dev), soc)
+    want = wk.viterbi_boundary_cuda(pi, Ww, soc)
+    diff, gap, delta = wk.viterbi_boundary_agreement(pi, Ww, soc, got, want)
+    assert not bool((diff & (gap > delta)).any())
+
+
+def test_viterbi_ops_run_bookkeeping_is_cheap(dev):
+    """On an input with no run longer than 1 (two keys in turn) K4 walks
+    every window and ends a run at each: within 10% of its time on runs of
+    RUN_MIN - 1 windows, which walk as many windows with a seventh of the
+    runs to find (S x L = 2048 x 4096, M = 32; the best of 5 launches)."""
+    S, L, M = 2048, 4096, 32
+    T, E, alt, valid = _run_problem(23, S, L, M, 63, "alternating", dev)
+    r = wk.VITERBI_RUN_MIN - 1
+    short = (torch.arange(L, device=dev) // r % 2).int().expand(S, L).contiguous()
+
+    def best_ms(keys):
+        wk.viterbi_ops_cuda(T, E, keys, valid)
+        times = []
+        for _ in range(5):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            wk.viterbi_ops_cuda(T, E, keys, valid)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return min(times)
+
+    assert wk.viterbi_ops_counts(short, valid) == wk.viterbi_ops_counts(alt, valid)
+    t_alt, t_short = best_ms(alt), best_ms(short)
+    assert t_alt <= 1.1 * t_short, (t_alt, t_short)
 
 
 @pytest.mark.parametrize("M", MS)

@@ -81,8 +81,8 @@ def _problem(seed, S, L, M, n_keys, dev):
 
 
 # (n_keys, the kernels that take k_glob at M = 32): K2 and K2g from 606
-# keys (their f64 gsum table beside the f32 one), K1 from 1415, K3, K4 and
-# K5 from about 1800
+# keys (their f64 gsum table beside the f32 one), K1 from 1415, K4 from 1657
+# (a tile of B a warp beside log T^T), K3 and K5 from about 1800
 ROUTES = [(63, set()), (1197, {"dsc_sweep", "dsc_sweep_gamma"}),
           (2400, {"segment_ops", "asc_sweep", "dsc_sweep", "dsc_sweep_gamma",
                   "viterbi_ops", "viterbi_paths"})]
